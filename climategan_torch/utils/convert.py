@@ -1,0 +1,168 @@
+"""JAX variables -> the port's state dict (the reference torch key layout).
+
+``state_dict_from_jax(variables, cfg)`` takes the JAX package's
+``{"params", "batch_stats", "spectral"}`` tree (arrays as numpy) and returns
+torch tensors under the reference keys: HWIO kernels become OIHW; a conv
+with spectral ``u``/``v`` becomes ``<key>.module.weight_bar`` /
+``.module.bias`` / ``.module.weight_u`` / ``.module.weight_v``; a BatchNorm
+wrapper's ``scale``/``bias``/``mean``/``var`` become ``weight``/``bias``/
+``running_mean``/``running_var`` (plus a zero ``num_batches_tracked``).
+It is the inverse of the JAX package's reference -> JAX converter.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+from climategan_torch.models.generator import GenConfig
+
+Path = Tuple[str, ...]
+Entry = Tuple[str, str, Path]  # (kind, torch key, JAX path)
+
+
+def _conv2dblock(tkey: str, path: Path, batch: bool) -> Iterator[Entry]:
+    yield "conv", f"{tkey}.conv", path + ("conv",)
+    if batch:
+        yield "bn", f"{tkey}.norm", path + ("norm", "BatchNorm_0")
+
+
+def _encoder(cfg: GenConfig) -> Iterator[Entry]:
+    e = ("encoder",)
+    yield "conv", "encoder.conv1", e + ("conv1",)
+    yield "bn", "encoder.bn1", e + ("bn1", "BatchNorm_0")
+    for stage, n in enumerate(cfg.encoder_layers):
+        for b in range(n):
+            t, p = f"encoder.layer{stage + 1}.{b}", e + (f"layer{stage + 1}_block{b}",)
+            for i in (1, 2, 3):
+                yield "conv", f"{t}.conv{i}", p + (f"conv{i}",)
+                yield "bn", f"{t}.bn{i}", p + (f"bn{i}", "BatchNorm_0")
+            if b == 0:
+                yield "conv", f"{t}.downsample.0", p + ("downsample_conv",)
+                yield "bn", f"{t}.downsample.1", p + ("downsample_bn", "BatchNorm_0")
+
+
+def _depth(cfg: GenConfig) -> Iterator[Entry]:
+    p = ("depth_decoder",)
+    for name in ("enc4_1", "enc4_2", "enc4_3"):
+        yield from _conv2dblock(f"decoders.d.{name}", p + (name,), True)
+    if cfg.m_use_dada or ("s" in cfg.tasks and cfg.s_use_dada):
+        yield from _conv2dblock("decoders.d.dec4", p + ("dec4",), False)
+    if cfg.d_upsample_featuremaps:
+        yield from _conv2dblock("decoders.d.upsample.1", p + ("up_conv",), True)
+        yield "conv", "decoders.d.upsample.2", p + ("up_out", "conv")
+
+
+def _seg() -> Iterator[Entry]:
+    p = ("seg_decoder",)
+    convbns = [(f"aspp.{n}", ("aspp", n)) for n in
+               ("conv1", "conv2", "conv3", "conv4", "conv_out")]
+    convbns += [("decoder.conv_low", ("decoder", "conv_low"))]
+    convbns += [(f"decoder.conv_cat.{i}", ("decoder", f"conv_cat{i}")) for i in (0, 1)]
+    for t, q in convbns:
+        yield "conv", f"decoders.s.{t}.conv", p + q + ("conv",)
+        yield "bn", f"decoders.s.{t}.bn", p + q + ("bn", "BatchNorm_0")
+    yield "conv", "decoders.s.decoder.conv_out", p + ("decoder", "conv_out")
+
+
+def _mask(cfg: GenConfig) -> Iterator[Entry]:
+    p = ("mask_decoder", "decoder")
+    batch = cfg.m_norm == "batch"
+    yield from _conv2dblock("decoders.m.proj_conv", p + ("proj_conv",), batch)
+    if cfg.m_use_low_level_feats:
+        for name in ("low_level_conv", "merge_feats_conv"):
+            yield from _conv2dblock(f"decoders.m.{name}", p + (name,), batch)
+    for r in range(cfg.m_n_res):
+        for ci in (0, 1):
+            yield from _conv2dblock(
+                f"decoders.m.model.0.model.{r}.model.{ci}",
+                p + ("res_blocks", f"block{r}", f"conv{ci + 1}"), batch)
+    for u in range(cfg.m_n_upsample):
+        yield from _conv2dblock(f"decoders.m.model.{2 + 2 * u}",
+                                p + (f"up_conv{u}",), batch)
+    yield from _conv2dblock(f"decoders.m.model.{1 + 2 * cfg.m_n_upsample}",
+                            p + ("out_conv",), False)
+
+
+def _painter(cfg: GenConfig) -> Iterator[Entry]:
+    p = ("painter",)
+    yield "conv", "painter.fc", p + ("fc",)
+    blocks = [(n, n, False) for n in ("head_0", "G_middle_0", "G_middle_1")]
+    blocks += [(f"up_spades.{i}", f"up_spade{i}", True)
+               for i in range(cfg.p_spade_n_up - 2)]
+    blocks += [("final_spade", "final_spade", False)]
+    for tname, jname, learned in blocks:
+        t, q = f"painter.{tname}", p + (jname,)
+        convs = ("conv_0", "conv_1") + (("conv_s",) if learned else ())
+        norms = ("norm_0", "norm_1") + (("norm_s",) if learned else ())
+        for c in convs:
+            yield "conv", f"{t}.{c}", q + (c,)
+        for n in norms:
+            yield "conv", f"{t}.{n}.mlp_shared.0", q + (n, "mlp_shared")
+            yield "conv", f"{t}.{n}.mlp_gamma", q + (n, "mlp_gamma")
+            yield "conv", f"{t}.{n}.mlp_beta", q + (n, "mlp_beta")
+    yield "conv", "painter.conv_img", p + ("conv_img",)
+
+
+def entries(cfg: GenConfig) -> Iterator[Entry]:
+    """(kind, torch key prefix, JAX path) for every conv and batch norm."""
+    if any(t in cfg.tasks for t in "msd"):
+        yield from _encoder(cfg)
+    if "d" in cfg.tasks:
+        yield from _depth(cfg)
+    if "s" in cfg.tasks:
+        yield from _seg()
+    if "m" in cfg.tasks:
+        yield from _mask(cfg)
+    if "p" in cfg.tasks:
+        yield from _painter(cfg)
+
+
+def _get(tree, path: Path):
+    node = tree
+    for k in path:
+        if not isinstance(node, dict) and not hasattr(node, "keys"):
+            return None
+        if k not in node:
+            return None
+        node = node[k]
+    return node
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def state_dict_from_jax(variables: Dict, cfg: GenConfig) -> Dict[str, torch.Tensor]:
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    spectral = variables.get("spectral", {})
+    sd: Dict[str, torch.Tensor] = {}
+    for kind, tkey, path in entries(cfg):
+        if kind == "bn":
+            p, s = _get(params, path), _get(stats, path)
+            if p is None or s is None:
+                raise KeyError(f"no batch norm at {'/'.join(path)}")
+            sd[f"{tkey}.weight"] = _tensor(p["scale"])
+            sd[f"{tkey}.bias"] = _tensor(p["bias"])
+            sd[f"{tkey}.running_mean"] = _tensor(s["mean"])
+            sd[f"{tkey}.running_var"] = _tensor(s["var"])
+            sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+            continue
+        p = _get(params, path)
+        if p is None or "kernel" not in p:
+            raise KeyError(f"no conv kernel at {'/'.join(path)}")
+        weight = _tensor(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+        uv = _get(spectral, path)
+        if uv is not None and "u" in uv:
+            prefix = f"{tkey}.module"
+            sd[f"{prefix}.weight_bar"] = weight
+            sd[f"{prefix}.weight_u"] = _tensor(uv["u"])
+            sd[f"{prefix}.weight_v"] = _tensor(uv["v"])
+        else:
+            prefix = tkey
+            sd[f"{prefix}.weight"] = weight
+        if "bias" in p:
+            sd[f"{prefix}.bias"] = _tensor(p["bias"])
+    return sd
