@@ -5,25 +5,38 @@
 
 Phases, any failure exits non-zero:
   1. print the card's name and power limit; build the kernels from the
-     sources in the checkout (one nvcc per CUDA source, started together;
-     Triton compiles at its first launch);
-  2. drive one full-width 640^2 bf16 flood forward (default opts: ResNet-101
-     os8, DADA depth, DeepLabV3+, base mask decoder, SPADE painter with
-     latent 640 and 7 upsamplings; random weights from a seed) with each
-     kernel wrapper recording its arguments, then hold each kernel to its
-     plain PyTorch version on exactly those inputs: in f32 (cuDNN TF32 off)
-     at atol = rtol = 1e-4, and in bf16 against the plain version in f32 on
-     the same bf16 inputs within one bf16 ulp of each output's largest
-     magnitude (the kernel sums in f32 and rounds once at the end);
-  3. the main path: launch counts set to 0, one flood forward through
-     build_infer_fn, counts read: 18 spade_cond launches and 1 masked_blend
-     launch; outputs finite, of the expected shapes and dtypes;
+     sources in the checkout (one nvcc per CUDA source, started together,
+     with each kernel's register and spill lines; Triton compiles at its
+     first launch);
+  2. drive one full-width 640^2 bf16 batch-2 forward of all three events
+     (default opts: ResNet-101 os8, DADA depth, DeepLabV3+, base mask
+     decoder, SPADE painter with latent 640 and 7 upsamplings; random
+     weights from a seed) with each kernel wrapper recording its arguments,
+     then hold each kernel to its plain PyTorch version on exactly those
+     inputs: spade_cond and masked_blend in f32 (cuDNN TF32 off) at
+     atol = rtol = 1e-4 (masked_blend 1e-6), and in bf16 against the plain
+     version in f32 on the same bf16 inputs within one bf16 ulp of each
+     output's largest magnitude (the kernel sums in f32 and rounds once at
+     the end); smog_tail within atol 1e-5; fire_color_grade and fire_paste
+     within 1.0 and equal on >= 99.99% of values (the count that differs is
+     printed);
+  3. the main path: launch counts set to 0, one forward of all three events
+     through build_infer_fn, counts read: 18 spade_cond and one launch of
+     each other kernel; outputs finite, of the expected shapes and dtypes,
+     the wildfire's range-pinning pixels 255 and 0;
   4. card vs CPU: the same model in f32 at 256^2 with device="cuda"
      (kernels) and device="cpu" (plain versions): masks within atol 1e-3,
-     uint8 floods within 1 LSB on >= 99.9% of pixels (smooth masks);
-  5. timings: flood latency and images/s, the masker's share, and per
-     kernel its time over the main path's calls beside the plain version,
-     one PyTorch library call computing the same function, and the bound.
+     uint8 floods within 1 LSB on >= 99.9% of pixels (smooth masks); then
+     the CPU run's own x, seg logits and depth with one fixed g_value
+     through add_fire and add_smog on both devices: uint8 wildfire and smog
+     within 1 LSB on >= 99.9% of values; the count of sky pixels on which
+     the two devices' seg argmaxes disagree is printed;
+  5. timings: flood-only and all-events latency and images/s (in turns),
+     the masker's share, the events' own share (add_fire + add_smog alone),
+     and per kernel its device time over the main path's calls (cold L2,
+     host time not counted) beside its back-to-back call time, the plain
+     version, one PyTorch library call computing the same function (where
+     there is one) and the bound.
 The last three lines are the card's name and power limit, the kernels JSON
 line, and {"ok": true, "device": {...}}.
 """
@@ -44,6 +57,15 @@ PEAK_BYTES = 3.35e12
 BATCH = 2
 SIZE = 640
 SMALL = 256
+G_VALUE = 120.0  # the wildfire filter's green value where it is fixed
+MAIN_PATH_LAUNCHES = {"spade_cond": 18, "masked_blend": 1, "smog_tail": 1,
+                      "fire_color_grade": 1, "fire_paste": 1}
+EVENT_KERNELS = ("smog_tail", "fire_color_grade", "fire_paste")
+# f32 operations per pixel (smog_tail, fire_paste) or per value
+# (fire_color_grade), counting each compare, floor, exp and pow as one, as
+# csrc/events.cu computes them
+EVENT_OPS = {"smog_tail": 4 + 3 * 12, "fire_color_grade": 9,
+             "fire_paste": 2 + 3 * 10}
 
 
 def log(*args):
@@ -58,6 +80,8 @@ def smi() -> str:
 
 
 def cuda_ms(torch, fn, reps: int = 5) -> float:
+    """ms per call of ``fn`` called back to back between two CUDA events:
+    the device's time, or the host's where it enqueues more slowly."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -70,6 +94,27 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Device ms per call of ``fn`` with a cold L2: each call has its own
+    pair of CUDA events and follows a 256 MB read that evicts the 50 MB L2
+    (a read, so that no dirty line is left for ``fn`` to write back); a
+    sleep kernel in front lets the host enqueue all calls before the device
+    reaches them, so the wrapper's host time is not counted."""
+    fn()
+    flush = torch.ones(2 ** 26, dtype=torch.int32, device="cuda")
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # tens of ms of head start for the host
+    for start, end in pairs:
+        flush.amax()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
 def profile_table(torch, fn, rows: int = 15) -> str:
     """torch.profiler over one call: the ops with the most device time."""
     from torch.profiler import ProfilerActivity, profile
@@ -79,6 +124,12 @@ def profile_table(torch, fn, rows: int = 15) -> str:
         torch.cuda.synchronize()
     return prof.key_averages().table(sort_by="self_device_time_total",
                                      row_limit=rows, max_name_column_width=60)
+
+
+def lsb_agreement(a, b):
+    """(share of values within 1 LSB, max LSB) of two uint8 tensors."""
+    lsb = (a.int() - b.int()).abs()
+    return (lsb <= 1).float().mean().item(), lsb.max().item()
 
 
 def main() -> int:
@@ -100,15 +151,24 @@ def run(torch) -> int:
     import torch.nn.functional as F
 
     from climategan_torch import kernels
+    from climategan_torch.events import fire as fire_mod
+    from climategan_torch.events import smog as smog_mod
     from climategan_torch.inference import build_infer_fn
     from climategan_torch.kernels import _build
+    from climategan_torch.kernels.fire_color_grade import (
+        fire_color_grade,
+        fire_color_grade_plain,
+    )
+    from climategan_torch.kernels.fire_paste import fire_paste, fire_paste_plain
     from climategan_torch.kernels.masked_blend import (
         masked_blend,
         masked_blend_plain,
     )
+    from climategan_torch.kernels.smog_tail import smog_tail, smog_tail_plain
     from climategan_torch.kernels.spade_cond import spade_cond, spade_cond_plain
     from climategan_torch.models import generator as generator_mod
     from climategan_torch.models import norms as norms_mod
+    from climategan_torch.ops.image import retrieve_sky_mask, unit_range_to_uint8
     from climategan_torch.utils.opts import load_opts
 
     torch.backends.cudnn.allow_tf32 = False
@@ -125,7 +185,7 @@ def run(torch) -> int:
     log(f"nvcc build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
     t0 = time.perf_counter()
     z = torch.zeros(1, 1, 1, 3, device=dev)
@@ -137,38 +197,44 @@ def run(torch) -> int:
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.rand(BATCH, SIZE, SIZE, 3, device=dev, generator=g) * 2 - 1
     uniform = torch.rand(9, 9, device=dev, generator=g)
+    g_dev = torch.tensor(G_VALUE, device=dev)
     t0 = time.perf_counter()
-    G, infer = build_infer_fn(opts, dtype=torch.bfloat16, device=dev, seed=0)
+    G, infer = build_infer_fn(opts, dtype=torch.bfloat16, device=dev, seed=0,
+                              ignore_event=())
     n_params = sum(p.numel() for p in G.parameters())
     log(f"full-width model: {n_params / 1e6:.1f}M params, built in "
         f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 2. kernels vs plain on the main path's own inputs --------------
-    calls = {"spade_cond": [], "masked_blend": []}
+    patched = [(norms_mod, "spade_cond", spade_cond),
+               (generator_mod, "masked_blend", masked_blend),
+               (smog_mod, "smog_tail", smog_tail),
+               (fire_mod, "fire_color_grade", fire_color_grade),
+               (fire_mod, "fire_paste", fire_paste)]
+    calls = {name: [] for _, name, _ in patched}
 
-    def record_spade(seg, k1, b1, branches):
-        calls["spade_cond"].append((seg, k1, b1, list(branches)))
-        return spade_cond(seg, k1, b1, branches)
+    def recorder(name, fn):
+        def record(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return record
 
-    def record_blend(x_, fake, m):
-        calls["masked_blend"].append((x_, fake, m))
-        return masked_blend(x_, fake, m)
-
-    norms_mod.spade_cond, generator_mod.masked_blend = record_spade, record_blend
+    for mod, name, fn in patched:
+        setattr(mod, name, recorder(name, fn))
     try:
-        infer(x, uniform=uniform)
+        infer(x, uniform=uniform, g_value=g_dev)
     finally:
-        norms_mod.spade_cond, generator_mod.masked_blend = spade_cond, masked_blend
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
     torch.cuda.synchronize()
-    log(f"recorded {len(calls['spade_cond'])} spade_cond and "
-        f"{len(calls['masked_blend'])} masked_blend calls")
+    log("recorded calls: " + ", ".join(f"{len(v)} {k}" for k, v in calls.items()))
 
     def f32(args):
         seg, k1, b1, branches = args
         return (seg.float(), k1.float(), b1.float(),
                 [tuple(t.float() for t in b) for b in branches])
 
-    err = {"spade_cond": [0.0, 0.0], "masked_blend": [0.0, 0.0]}
+    err = {name: [0.0, 0.0] for name in calls}
     for i, args in enumerate(calls["spade_cond"]):
         seg, _, _, branches = args
         shape = (f"{tuple(seg.shape)} nc={[b[0].shape[3] for b in branches]}")
@@ -196,10 +262,26 @@ def run(torch) -> int:
         if not e <= ulp:
             raise AssertionError(f"masked_blend bf16 max error {e} > {ulp}")
         err["masked_blend"][1] = max(err["masked_blend"][1], e)
-    torch.cuda.synchronize()
     log(f"kernels vs plain: spade_cond max err f32 {err['spade_cond'][0]:.3e} "
         f"bf16 {err['spade_cond'][1]:.3e}; masked_blend f32 "
         f"{err['masked_blend'][0]:.3e} bf16 {err['masked_blend'][1]:.3e}")
+
+    event_fns = {"smog_tail": (smog_tail, smog_tail_plain),
+                 "fire_color_grade": (fire_color_grade, fire_color_grade_plain),
+                 "fire_paste": (fire_paste, fire_paste_plain)}
+    for name, (kernel, plain) in event_fns.items():
+        for args in calls[name]:
+            diff = (kernel(*args) - plain(*args)).abs()
+            e = diff.max().item()
+            n_diff = int((diff > 0).sum().item())
+            equal = 1.0 - n_diff / diff.numel()
+            log(f"{name} {tuple(args[0].shape)} f32: max err {e:.3e}, "
+                f"{n_diff} of {diff.numel()} values differ")
+            ok = e <= 1e-5 if name == "smog_tail" else (e <= 1.0 and equal >= 0.9999)
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version")
+            err[name][0] = max(err[name][0], e)
+    torch.cuda.synchronize()
 
     # ---- 3. the main path ----------------------------------------------
     kernels.reset_launches()
@@ -207,46 +289,111 @@ def run(torch) -> int:
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
     log(f"main path launches: {launches}")
-    if launches != {"spade_cond": 18, "masked_blend": 1}:
-        raise AssertionError(f"expected 18 spade_cond and 1 masked_blend "
-                             f"launches, got {launches}")
-    flood, mask = out["flood"], out["mask"]
-    if flood.shape != (BATCH, SIZE, SIZE, 3) or flood.dtype != torch.uint8:
-        raise AssertionError(f"flood {tuple(flood.shape)} {flood.dtype}")
+    if launches != MAIN_PATH_LAUNCHES:
+        raise AssertionError(f"expected launches {MAIN_PATH_LAUNCHES}, got "
+                             f"{launches}")
+    mask = out["mask"]
+    for key in ("flood", "wildfire", "smog"):
+        v = out[key]
+        if v.shape != (BATCH, SIZE, SIZE, 3) or v.dtype != torch.uint8:
+            raise AssertionError(f"{key} {tuple(v.shape)} {v.dtype}")
+        log(f"{key} ok: uint8 range [{v.min().item()}, {v.max().item()}], "
+            f"mean {v.float().mean().item():.3f}")
     if mask.shape != (BATCH, SIZE, SIZE, 1) or mask.dtype != torch.bfloat16:
         raise AssertionError(f"mask {tuple(mask.shape)} {mask.dtype}")
     if not torch.isfinite(mask.float()).all() or not (0 <= mask.min() <= mask.max() <= 1):
         raise AssertionError("mask is not finite in [0, 1]")
-    log(f"flood ok: uint8 range [{flood.min().item()}, {flood.max().item()}], "
-        f"mask mean {mask.float().mean().item():.4f}")
+    wf = out["wildfire"]
+    if not ((wf[:, 0, 0] == 255).all() and (wf[:, -1, -1] == 0).all()):
+        raise AssertionError("wildfire range-pinning pixels are not 255 and 0")
+    log(f"mask mean {mask.float().mean().item():.4f}")
 
     # ---- 4. card vs CPU at 256^2, f32 ------------------------------------
     xs = torch.rand(1, SMALL, SMALL, 3, generator=torch.Generator().manual_seed(2)) * 2 - 1
     us = torch.rand(9, 9, generator=torch.Generator().manual_seed(3))
-    res = {}
+    res, masker_out = {}, {}
     for where in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        _, inf = build_infer_fn(opts, dtype=torch.float32, bin_value=-1,
-                                device=where, seed=0)
-        res[where] = {k: v.cpu() for k, v in inf(xs, uniform=us).items()}
-        log(f"256^2 f32 flood on {where}: {time.perf_counter() - t0:.1f} s "
+        Gw, inf = build_infer_fn(opts, dtype=torch.float32, bin_value=-1,
+                                 ignore_event=(), device=where, seed=0)
+        res[where] = {k: v.cpu() for k, v in inf(xs, uniform=us,
+                                                  g_value=G_VALUE).items()}
+        d_w, s_w, _ = Gw.infer_masker(
+            xs.to(where).permute(0, 3, 1, 2).contiguous())
+        masker_out[where] = (d_w.cpu(), s_w.cpu())
+        log(f"256^2 f32 all events on {where}: {time.perf_counter() - t0:.1f} s "
             f"(incl. model build)")
     mask_err = (res["cuda"]["mask"] - res["cpu"]["mask"]).abs().max().item()
-    lsb = (res["cuda"]["flood"].int() - res["cpu"]["flood"].int()).abs()
-    within = (lsb <= 1).float().mean().item()
+    within, worst = lsb_agreement(res["cuda"]["flood"], res["cpu"]["flood"])
     log(f"card vs CPU: mask max err {mask_err:.3e}, flood within 1 LSB on "
-        f"{100 * within:.4f}% of pixels (max {lsb.max().item()} LSB)")
+        f"{100 * within:.4f}% of pixels (max {worst} LSB)")
     if not mask_err <= 1e-3 or not within >= 0.999:
         raise AssertionError("card and CPU disagree")
+    sky = {w: retrieve_sky_mask(masker_out[w][1]) for w in masker_out}
+    n_sky = int((sky["cuda"] != sky["cpu"]).sum().item())
+    log(f"whole path: seg argmax sky disagrees on {n_sky} of "
+        f"{sky['cpu'].numel()} seg pixels ({int(sky['cpu'].sum().item())} sky "
+        f"on the CPU)")
+    for key in ("wildfire", "smog"):
+        within, worst = lsb_agreement(res["cuda"][key], res["cpu"][key])
+        log(f"whole path {key}: within 1 LSB on {100 * within:.4f}% "
+            f"(max {worst} LSB; not a bar: seg ties can flip sky pixels)")
+    x_cpu = xs.permute(0, 3, 1, 2).contiguous()
+    d_cpu, s_cpu = masker_out["cpu"]
+    ev = {}
+    for where in ("cuda", "cpu"):
+        xw = x_cpu.to(where)
+        ev[where] = {
+            "wildfire": unit_range_to_uint8(fire_mod.add_fire(
+                xw, s_cpu.to(where), g_value=G_VALUE)).cpu(),
+            "smog": unit_range_to_uint8(smog_mod.add_smog(
+                xw, d_cpu.to(where))).cpu()}
+    for key in ("wildfire", "smog"):
+        within, worst = lsb_agreement(ev["cuda"][key], ev["cpu"][key])
+        log(f"card vs CPU on the CPU's x, seg, depth: {key} within 1 LSB on "
+            f"{100 * within:.4f}% of values (max {worst} LSB)")
+        if not within >= 0.999:
+            raise AssertionError(f"card and CPU disagree on {key}")
 
     # ---- 5. timings ------------------------------------------------------
-    flood_ms = cuda_ms(torch, lambda: infer(x, uniform=uniform), reps=3)
+    _, infer_flood = build_infer_fn(opts, dtype=torch.bfloat16, device=dev,
+                                    seed=0, ignore_event=("wildfire", "smog"))
+
+    def run_flood():
+        return infer_flood(x, uniform=uniform)
+
+    def run_all():
+        return infer(x, uniform=uniform, g_value=g_dev)
+
+    # in turns (flood, all, all, flood), 3 forwards each time
+    turns = [cuda_ms(torch, fn, reps=3)
+             for fn in (run_flood, run_all, run_all, run_flood)]
+    flood_ms, all_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     xc = x.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous()
     masker_ms = cuda_ms(torch, lambda: G.infer_masker(xc), reps=3)
-    log(f"flood 640^2 bf16 batch {BATCH}: {flood_ms:.2f} ms per batch, "
+    d_m, s_m, _ = G.infer_masker(xc)
+    xf, sf, df = xc.float(), s_m.float(), d_m.float()
+
+    def run_fire():
+        return fire_mod.add_fire(xf, sf, g_value=g_dev)
+
+    def run_smog():
+        return smog_mod.add_smog(xf, df)
+
+    fire_ms, smog_ms = cuda_ms(torch, run_fire, 10), cuda_ms(torch, run_smog, 10)
+    fire_dev, smog_dev = device_ms(torch, run_fire), device_ms(torch, run_smog)
+    log(f"flood only 640^2 bf16 batch {BATCH}: {flood_ms:.2f} ms per batch, "
         f"{1000 * BATCH / flood_ms:.3f} images/s; masker {masker_ms:.2f} ms, "
         f"painter + paste + quantize {flood_ms - masker_ms:.2f} ms")
-    log(profile_table(torch, lambda: infer(x, uniform=uniform)))
+    log(f"all events 640^2 bf16 batch {BATCH}: {all_ms:.2f} ms per batch, "
+        f"{1000 * BATCH / all_ms:.3f} images/s (turns: "
+        + ", ".join(f"{t:.2f}" for t in turns) + " ms)")
+    log(f"events alone, called back to back: add_fire {fire_ms:.3f} ms + "
+        f"add_smog {smog_ms:.3f} ms = {fire_ms + smog_ms:.3f} ms; device "
+        f"time with a cold L2: {fire_dev:.3f} + {smog_dev:.3f} = "
+        f"{fire_dev + smog_dev:.3f} ms")
+    log(profile_table(torch, run_all))
+    log(profile_table(torch, lambda: (run_fire(), run_smog()), rows=25))
 
     def library_spade(seg, k1, b1, branches):
         xs_ = seg.permute(0, 3, 1, 2)
@@ -273,18 +420,20 @@ def run(torch) -> int:
         return flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
 
     rows = []
-    t_sc = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    t_sc = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "bound_ms": 0.0}
     ops_ms = bytes_ms = 0.0
     per_call = []
     for args in calls["spade_cond"]:
-        k = cuda_ms(torch, lambda: spade_cond(*args))
-        p = cuda_ms(torch, lambda: spade_cond_plain(*args))
-        lib = cuda_ms(torch, lambda: library_spade(*args))
+        k = device_ms(torch, lambda: spade_cond(*args), reps=5)
+        p = device_ms(torch, lambda: spade_cond_plain(*args), reps=5)
+        lib = device_ms(torch, lambda: library_spade(*args), reps=5)
         t_ops, t_bytes = bound_spade(*args)
         b = max(t_ops, t_bytes)
         ops_ms += t_ops
         bytes_ms += t_bytes
         t_sc["ms"] += k
+        t_sc["call_ms"] += cuda_ms(torch, lambda: spade_cond(*args))
         t_sc["plain_ms"] += p
         t_sc["library_ms"] += lib
         t_sc["bound_ms"] += b
@@ -303,8 +452,8 @@ def run(torch) -> int:
         "launches": launches["spade_cond"],
         "max_abs_err": err["spade_cond"][0],
         "max_abs_err_bf16": err["spade_cond"][1],
-        "ms": t_sc["ms"], "plain_ms": t_sc["plain_ms"],
-        "bound_ms": t_sc["bound_ms"],
+        "ms": t_sc["ms"], "call_ms": t_sc["call_ms"],
+        "plain_ms": t_sc["plain_ms"], "bound_ms": t_sc["bound_ms"],
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "library_ms": t_sc["library_ms"],
         "note": "ms summed over the 18 calls of one batch-2 forward",
@@ -322,16 +471,47 @@ def run(torch) -> int:
         "launches": launches["masked_blend"],
         "max_abs_err": err["masked_blend"][0],
         "max_abs_err_bf16": err["masked_blend"][1],
-        "ms": cuda_ms(torch, lambda: masked_blend(xb, fb, mb), reps=20),
-        "plain_ms": cuda_ms(torch, lambda: masked_blend_plain(xb, fb, mb), reps=20),
+        "ms": device_ms(torch, lambda: masked_blend(xb, fb, mb)),
+        "call_ms": cuda_ms(torch, lambda: masked_blend(xb, fb, mb), reps=20),
+        "plain_ms": device_ms(torch, lambda: masked_blend_plain(xb, fb, mb)),
         "bound_ms": max(b_bytes, b_ops) * 1e3,
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-        "library_ms": cuda_ms(torch, lambda: torch.lerp(xb, fb, mb), reps=20),
+        "library_ms": device_ms(torch, lambda: torch.lerp(xb, fb, mb)),
     })
+
+    replaces = {"smog_tail": "climategan_tpu/ops/pallas/events.py:69",
+                "fire_color_grade": "climategan_tpu/ops/pallas/events.py:109",
+                "fire_paste": "climategan_tpu/ops/pallas/events.py:152"}
+    for name in EVENT_KERNELS:
+        kernel, plain = event_fns[name]
+        args = calls[name][0]
+        x_in = args[0]
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        # each input read once, the (N, 3, H, W) output written once
+        nbytes = sum(t.numel() * t.element_size() for t in tensors) \
+            + x_in.numel() * x_in.element_size()
+        units = x_in.numel() if name == "fire_color_grade" else x_in.numel() // 3
+        b_bytes = nbytes / PEAK_BYTES
+        b_ops = EVENT_OPS[name] * units / PEAK_F32_FLOPS
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "climategan_torch/csrc/events.cu",
+            "replaces": replaces[name],
+            "launches": launches[name],
+            "max_abs_err": err[name][0],
+            "ms": device_ms(torch, lambda: kernel(*args)),
+            "call_ms": cuda_ms(torch, lambda: kernel(*args), reps=20),
+            "plain_ms": device_ms(torch, lambda: plain(*args)),
+            "bound_ms": max(b_bytes, b_ops) * 1e3,
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "library_ms": None,
+            "note": "no single PyTorch call computes this function",
+        })
     for r in rows:
-        log(f"{r['name']}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
-            f"ms, library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} "
-            f"ms ({r['bound_by']})")
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
+        log(f"{r['name']}: kernel {r['ms']:.4f} ms (back to back with its "
+            f"host time {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+            f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     log(smi())
     log(json.dumps({"kernels": rows}))

@@ -1,8 +1,11 @@
-"""Flood inference: x (NHWC, [-1, 1]) -> {"flood": uint8 NHWC, "mask": NHWC}.
+"""Inference of the three events: x (NHWC, [-1, 1]) -> {"flood",
+"wildfire", "smog": uint8 NHWC, "mask": NHWC}.
 
 Masker (shared encoder, depth, segmentation, mask) -> binary mask ->
-paint_cloudy (Perlin sky probe, SPADE painter) -> paste -> per-image uint8
-quantize. Wildfire and smog are not ported yet.
+paint_cloudy (Perlin sky probe, SPADE painter) -> paste for the flood; the
+wildfire and smog composite the same input with the seg logits and the
+depth, in float32 on the model-dtype-rounded input; then per-image uint8
+quantize.
 """
 from __future__ import annotations
 
@@ -11,6 +14,8 @@ from typing import Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from climategan_torch.events.fire import add_fire
+from climategan_torch.events.smog import add_smog
 from climategan_torch.models.generator import (
     GenConfig,
     OmniGenerator,
@@ -34,27 +39,27 @@ def build_infer_fn(
     dtype: torch.dtype = torch.bfloat16,
     bin_value: float = 0.5,
     cloudy: bool = True,
-    ignore_event: Tuple[str, ...] = ("wildfire", "smog"),
+    ignore_event: Tuple[str, ...] = (),
     quantize: bool = True,
     device="cuda",
     state_dict: Optional[Mapping[str, torch.Tensor]] = None,
     seed: int = 0,
 ) -> Tuple[OmniGenerator, callable]:
-    """Returns ``(G, infer)``; ``infer(x, uniform=None, generator=None)``.
+    """Returns ``(G, infer)``;
+    ``infer(x, uniform=None, generator=None, g_value=None)``.
 
     G is built in f32 with weights from ``state_dict`` (reference key
     layout, loaded strictly; spectral kernels baked from the loaded values)
     or, without one, random weights from ``seed``; it then moves to
     ``device`` in ``dtype``. ``bin_value < 0`` keeps the smooth mask.
     ``uniform`` is the (9, 9) Perlin draw tensor (see ops/perlin.py);
-    without it the draws come from ``generator``.
+    without it the draws come from ``generator``. ``g_value`` is the
+    wildfire filter's green value (see events/fire.py); without it, it is
+    drawn from ``generator``. The events' knobs come from ``opts.events``.
     """
-    missing = {"wildfire", "smog"} - set(ignore_event)
-    if missing:
-        raise NotImplementedError(
-            f"events {sorted(missing)} are not ported yet (slice 2 of the "
-            f"port); pass ignore_event=('wildfire', 'smog')")
     device = resolve_device(device)
+    fire_opts = opts.events.get("fire", {}) or {}
+    smog_opts = opts.events.get("smog", {}) or {}
     if state_dict is None:
         G = create_generator(opts, seed)
     else:
@@ -64,7 +69,8 @@ def build_infer_fn(
 
     @torch.inference_mode()
     def infer(x, uniform: Optional[torch.Tensor] = None,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None,
+              g_value=None):
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
         # NCHW-contiguous, not the channels_last view of the NHWC input: on
@@ -72,7 +78,7 @@ def build_infer_fn(
         # dilated 3x3 512-channel conv of ResNet layer4 to a direct kernel
         # that took 94 of the masker's 106 ms at 640^2 batch 2 (PERF.md)
         x = x.to(device=device, dtype=dtype).permute(0, 3, 1, 2).contiguous()
-        _, s, m = G.infer_masker(x)
+        d, s, m = G.infer_masker(x)
         out = {}
         if "flood" not in ignore_event:
             mb = (m > bin_value).to(x.dtype) if bin_value >= 0 else m
@@ -82,6 +88,24 @@ def build_infer_fn(
             else:
                 flood = G.paint(mb, x)
             out["flood"] = flood.permute(0, 2, 3, 1)
+        if "wildfire" not in ignore_event:
+            out["wildfire"] = add_fire(
+                x.float(), s.float(), g_value=g_value, generator=generator,
+                kernel_size=int(fire_opts.get("kernel_size", 281)),
+                kernel_sigma=float(fire_opts.get("kernel_sigma", 140.5)),
+                crop_bottom_sky_mask=bool(
+                    fire_opts.get("crop_bottom_sky_mask", True)),
+            ).permute(0, 2, 3, 1)
+        if "smog" not in ignore_event:
+            out["smog"] = add_smog(
+                x.float(), d.float(),
+                airlight=float(smog_opts.get("airlight", 0.76)),
+                beta=float(smog_opts.get("beta", 2.0)),
+                vr=float(smog_opts.get("vr", 1.0)),
+                yellow_color=tuple(smog_opts.get("yellow_color",
+                                                 (224, 192, 29))),
+                alpha=float(smog_opts.get("alpha", 20.0)),
+            ).permute(0, 2, 3, 1)
         if quantize:
             out = {k: unit_range_to_uint8(v) for k, v in out.items()}
         out["mask"] = m.permute(0, 2, 3, 1)

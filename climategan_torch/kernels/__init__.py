@@ -8,7 +8,9 @@ from __future__ import annotations
 
 from typing import Dict
 
-launches: Dict[str, int] = {"spade_cond": 0, "masked_blend": 0}
+launches: Dict[str, int] = {"spade_cond": 0, "masked_blend": 0,
+                            "smog_tail": 0, "fire_color_grade": 0,
+                            "fire_paste": 0}
 
 
 def reset_launches() -> None:

@@ -10,7 +10,13 @@ import pytest
 import torch
 
 from climategan_torch.kernels import launches, reset_launches
+from climategan_torch.kernels.fire_color_grade import (
+    fire_color_grade,
+    fire_color_grade_plain,
+)
+from climategan_torch.kernels.fire_paste import fire_paste, fire_paste_plain
 from climategan_torch.kernels.masked_blend import masked_blend, masked_blend_plain
+from climategan_torch.kernels.smog_tail import smog_tail, smog_tail_plain
 from climategan_torch.kernels.spade_cond import spade_cond, spade_cond_plain
 
 pytestmark = pytest.mark.cuda
@@ -103,3 +109,64 @@ def test_masked_blend_matches_plain(dtype):
     assert launches["masked_blend"] == 1
     torch.testing.assert_close(got, masked_blend_plain(x, fake, m), rtol=0,
                                atol=1e-6)
+
+
+EVENT_SHAPES = [(2, 37, 91), (2, 64, 128)]
+SMOG = dict(airlight=0.76, beta=2.0, yellow=(224.0, 192.0, 29.0), alpha=20.0)
+
+
+def _event_args(name, dev, shape, seed=2):
+    """The kernel, its plain version and float32 inputs on ``dev``: x in
+    [0, 1] for smog_tail, integers in [0, 255] (as after the warm shift)
+    for the fire kernels."""
+    g = torch.Generator().manual_seed(seed)
+    N, H, W = shape
+    plane = torch.rand(N, 1, H, W, generator=g)
+    if name == "smog_tail":
+        x = torch.rand(N, 3, H, W, generator=g)
+        return smog_tail, smog_tail_plain, [x.to(dev), plane.to(dev)], SMOG
+    x = torch.floor(torch.rand(N, 3, H, W, generator=g) * 256)
+    if name == "fire_color_grade":
+        return (fire_color_grade, fire_color_grade_plain,
+                [x.to(dev), torch.tensor(97.3, device=dev)], {})
+    return (fire_paste, fire_paste_plain,
+            [x.to(dev), plane.to(dev), torch.tensor(131.0, device=dev)], {})
+
+
+@pytest.mark.parametrize("shape", EVENT_SHAPES)
+@pytest.mark.parametrize("name", ["smog_tail", "fire_color_grade", "fire_paste"])
+def test_event_kernel_matches_plain(name, shape):
+    """smog_tail within atol 1e-5; the fire kernels within 1.0 and equal on
+    >= 99.99% of values (chip_smoke.py's bars); one launch each."""
+    dev = _device()
+    kernel, plain, args, kw = _event_args(name, dev, shape)
+    reset_launches()
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches[name] == 1
+    assert sum(launches.values()) == 1
+    want = plain(*args, **kw)
+    if name == "smog_tail":
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    else:
+        diff = (got - want).abs()
+        assert diff.max() <= 1.0
+        assert (diff == 0).float().mean() >= 0.9999
+
+
+@pytest.mark.parametrize("name", ["smog_tail", "fire_color_grade", "fire_paste"])
+def test_event_kernel_rejects_what_it_does_not_take(name):
+    dev = _device()
+    kernel, _, args, kw = _event_args(name, dev, (1, 8, 16))
+    x, rest = args[0], args[1:]
+    reset_launches()
+    with pytest.raises(TypeError):
+        kernel(x.bfloat16(), *rest, **kw)
+    with pytest.raises(ValueError):
+        kernel(x[..., ::2], *[r[..., ::2] if r.ndim == 4 else r for r in rest],
+               **kw)  # not contiguous
+    with pytest.raises(ValueError):
+        kernel(x, *[r.cpu() for r in rest], **kw)  # CPU beside CUDA
+    with pytest.raises(ValueError):
+        kernel(x.cpu(), *rest, **kw)  # CUDA beside CPU
+    assert launches == dict.fromkeys(launches, 0)

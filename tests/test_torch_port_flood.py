@@ -20,7 +20,6 @@ from climategan_tpu.utils.bn_fold import bake_spectral_norm
 from climategan_torch.inference import build_infer_fn
 from climategan_torch.models.generator import GenConfig
 from climategan_torch.utils.convert import state_dict_from_jax
-from climategan_torch.utils.opts import load_opts
 from tests.torch_port_common import tiny_pair
 
 BIN_VALUES = (-1.0, 0.5)
@@ -43,8 +42,9 @@ def runs():
             freeze_spectral=True)
         want = {k: np.asarray(v) for k, v in jinfer(baked, x, rng).items()}
         _, infer = build_infer_fn(topts, dtype=torch.float32,
-                                  bin_value=bin_value, device="cpu",
-                                  state_dict=sd)
+                                  bin_value=bin_value,
+                                  ignore_event=("wildfire", "smog"),
+                                  device="cpu", state_dict=sd)
         got = {k: v.numpy() for k, v in infer(torch.from_numpy(x),
                                               uniform=uniform).items()}
         out[bin_value] = (want, got)
@@ -85,9 +85,3 @@ def test_flood_where_the_binarized_masks_agree(runs):
     if np.array_equal(got["mask"] > 0.5, want["mask"] > 0.5):
         diff = np.abs(got["flood"].astype(int) - want["flood"].astype(int))
         assert diff.max() <= 1, diff.max()
-
-
-@pytest.mark.parametrize("ignore", [(), ("smog",), ("wildfire",)])
-def test_wildfire_and_smog_are_not_ported_yet(ignore):
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        build_infer_fn(load_opts(), ignore_event=ignore, device="cpu")

@@ -76,7 +76,7 @@ def test_wrappers_take_plain_versions_on_cpu_and_count_no_launch():
     g = torch.Generator().manual_seed(8)
     x, fake, m = (torch.rand(1, 4, 4, c, generator=g) for c in (3, 3, 1))
     assert torch.equal(masked_blend(x, fake, m), masked_blend_plain(x, fake, m))
-    assert launches == {"spade_cond": 0, "masked_blend": 0}
+    assert launches == dict.fromkeys(launches, 0)
 
 
 def test_spade_cond_rejects_mixed_devices_and_dtypes_before_launch():
