@@ -13,11 +13,12 @@ Phases, any failure exits non-zero:
      decoder, SPADE painter with latent 640 and 7 upsamplings; random
      weights from a seed) with each kernel wrapper recording its arguments,
      then hold each kernel to its plain PyTorch version on exactly those
-     inputs: spade_cond and masked_blend in f32 (cuDNN TF32 off) at
-     atol = rtol = 1e-4 (masked_blend 1e-6), and in bf16 against the plain
-     version in f32 on the same bf16 inputs within one bf16 ulp of each
-     output's largest magnitude (the kernel sums in f32 and rounds once at
-     the end); smog_tail within atol 1e-5; fire_color_grade and fire_paste
+     inputs: spade_cond (the CUDA-core kernel) and masked_blend in f32
+     (cuDNN TF32 off) at atol = rtol = 1e-4 (masked_blend 1e-6), and in bf16
+     (spade_cond: the tensor-core kernel on the packs the model was built
+     with) against the plain version in f32 on the same bf16 inputs within
+     one bf16 ulp of each output's largest magnitude (the kernels sum in f32;
+     spade_cond rounds its activation and output to bf16); smog_tail within atol 1e-5; fire_color_grade and fire_paste
      within 1.0 and equal on >= 99.99% of values (the count that differs is
      printed);
   3. the main path: launch counts set to 0, one forward of all three events
@@ -33,10 +34,14 @@ Phases, any failure exits non-zero:
      the two devices' seg argmaxes disagree is printed;
   5. timings: flood-only and all-events latency and images/s (in turns),
      the masker's share, the events' own share (add_fire + add_smog alone),
-     and per kernel its device time over the main path's calls (cold L2,
-     host time not counted) beside its back-to-back call time, the plain
-     version, one PyTorch library call computing the same function (where
-     there is one) and the bound.
+     the device kernels of one forward with the SPADE weights packed once
+     and packed per call (profiler), the 640^2 flood's uint8 agreement with
+     the same forward through spade_cond_plain (information only), and per
+     kernel its device time over the main path's calls (cold L2, host time
+     not counted) beside its back-to-back call time, the plain version, one
+     PyTorch library call computing the same function (where there is one;
+     weights laid out before the timing) and the bound; spade_cond per call
+     with its TFLOP/s and share of the bound.
 The last three lines are the card's name and power limit, the kernels JSON
 line, and {"ok": true, "device": {...}}.
 """
@@ -126,6 +131,17 @@ def profile_table(torch, fn, rows: int = 15) -> str:
                                      row_limit=rows, max_name_column_width=60)
 
 
+def device_kernels(torch, fn) -> int:
+    """Kernels and copies the device ran in one call of ``fn`` (profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
 def lsb_agreement(a, b):
     """(share of values within 1 LSB, max LSB) of two uint8 tensors."""
     lsb = (a.int() - b.int()).abs()
@@ -165,7 +181,11 @@ def run(torch) -> int:
         masked_blend_plain,
     )
     from climategan_torch.kernels.smog_tail import smog_tail, smog_tail_plain
-    from climategan_torch.kernels.spade_cond import spade_cond, spade_cond_plain
+    from climategan_torch.kernels.spade_cond import (
+        spade_cond,
+        spade_cond_packed,
+        spade_cond_plain,
+    )
     from climategan_torch.models import generator as generator_mod
     from climategan_torch.models import norms as norms_mod
     from climategan_torch.ops.image import retrieve_sky_mask, unit_range_to_uint8
@@ -206,12 +226,15 @@ def run(torch) -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 2. kernels vs plain on the main path's own inputs --------------
-    patched = [(norms_mod, "spade_cond", spade_cond),
-               (generator_mod, "masked_blend", masked_blend),
-               (smog_mod, "smog_tail", smog_tail),
-               (fire_mod, "fire_color_grade", fire_color_grade),
-               (fire_mod, "fire_paste", fire_paste)]
-    calls = {name: [] for _, name, _ in patched}
+    # (module, attribute, kernel): the modules call spade_cond_packed on the
+    # weights packed when the model was built; a spade_cond call records
+    # (seg, pack)
+    patched = [(norms_mod, "spade_cond_packed", "spade_cond", spade_cond_packed),
+               (generator_mod, "masked_blend", "masked_blend", masked_blend),
+               (smog_mod, "smog_tail", "smog_tail", smog_tail),
+               (fire_mod, "fire_color_grade", "fire_color_grade", fire_color_grade),
+               (fire_mod, "fire_paste", "fire_paste", fire_paste)]
+    calls = {name: [] for _, _, name, _ in patched}
 
     def recorder(name, fn):
         def record(*args):
@@ -219,13 +242,13 @@ def run(torch) -> int:
             return fn(*args)
         return record
 
-    for mod, name, fn in patched:
-        setattr(mod, name, recorder(name, fn))
+    for mod, attr, name, fn in patched:
+        setattr(mod, attr, recorder(name, fn))
     try:
         infer(x, uniform=uniform, g_value=g_dev)
     finally:
-        for mod, name, fn in patched:
-            setattr(mod, name, fn)
+        for mod, attr, _, fn in patched:
+            setattr(mod, attr, fn)
     torch.cuda.synchronize()
     log("recorded calls: " + ", ".join(f"{len(v)} {k}" for k, v in calls.items()))
 
@@ -235,15 +258,16 @@ def run(torch) -> int:
                 [tuple(t.float() for t in b) for b in branches])
 
     err = {name: [0.0, 0.0] for name in calls}
-    for i, args in enumerate(calls["spade_cond"]):
-        seg, _, _, branches = args
-        shape = (f"{tuple(seg.shape)} nc={[b[0].shape[3] for b in branches]}")
-        a32 = f32(args)
+    for i, (seg, pack) in enumerate(calls["spade_cond"]):
+        if pack.route != "wgmma":
+            raise AssertionError(f"spade_cond call {i}: a {pack.route!r} pack")
+        shape = (f"{tuple(seg.shape)} nc={[c // 2 for c in pack.couts]}")
+        a32 = f32((seg, *pack.args))
         for got, want in zip(spade_cond(*a32), spade_cond_plain(*a32)):
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
             err["spade_cond"][0] = max(err["spade_cond"][0],
                                        (got - want).abs().max().item())
-        for got, want in zip(spade_cond(*args), spade_cond_plain(*a32)):
+        for got, want in zip(spade_cond_packed(seg, pack), spade_cond_plain(*a32)):
             ulp = 2.0 ** (torch.floor(torch.log2(want.abs().max())).item() - 7)
             e = (got.float() - want).abs().max().item()
             if not e <= ulp:
@@ -393,21 +417,51 @@ def run(torch) -> int:
         f"time with a cold L2: {fire_dev:.3f} + {smog_dev:.3f} = "
         f"{fire_dev + smog_dev:.3f} ms")
     log(profile_table(torch, run_all))
+    # the packs built with the model vs packing in every call (the way of
+    # the port's first versions): the difference is the weight copies
+    packs = [(m, a, getattr(m, a)) for m in G.modules()
+             for a in ("pack", "shortcut_pack") if getattr(m, a, None) is not None]
+    n_packed = device_kernels(torch, run_all)
+    for m, a, _ in packs:
+        setattr(m, a, None)
+    try:
+        n_unpacked = device_kernels(torch, run_all)
+    finally:
+        for m, a, pk in packs:
+            setattr(m, a, pk)
+    log(f"device kernels and copies in one all-events forward (profiler): "
+        f"{n_packed} with the {len(packs)} SPADE packs built with the model, "
+        f"{n_unpacked} when every spade_cond call packs its weights")
+    norms_mod.spade_cond_packed = lambda seg, pack: spade_cond_plain(seg, *pack.args)
+    try:
+        out_plain = infer(x, uniform=uniform)
+    finally:
+        norms_mod.spade_cond_packed = spade_cond_packed
+    within, worst = lsb_agreement(out["flood"], out_plain["flood"])
+    log(f"640^2 bf16 flood through spade_cond vs through spade_cond_plain "
+        f"(information, not a bar): within 1 LSB on {100 * within:.4f}% of "
+        f"values (max {worst} LSB)")
     log(profile_table(torch, lambda: (run_fire(), run_smog()), rows=25))
 
-    def library_spade(seg, k1, b1, branches):
-        xs_ = seg.permute(0, 3, 1, 2)
-        off, outs = 0, []
+    def library_weights(k1, b1, branches):
+        """OIHW weights per branch for cuDNN, made before the timing."""
+        off, ws = 0, []
         for kg, bg, kb, bb in branches:
             hid = kg.shape[2]
-            a = F.relu(F.conv2d(xs_, k1[..., off:off + hid].permute(3, 2, 0, 1),
-                                b1[off:off + hid], padding=1))
-            outs.append(F.conv2d(a, torch.cat([kg, kb], -1).permute(3, 2, 0, 1),
-                                 torch.cat([bg, bb]), padding=1))
+            ws.append((k1[..., off:off + hid].permute(3, 2, 0, 1).contiguous(),
+                       b1[off:off + hid].contiguous(),
+                       torch.cat([kg, kb], -1).permute(3, 2, 0, 1).contiguous(),
+                       torch.cat([bg, bb])))
             off += hid
-        return outs
+        return ws
+
+    def library_spade(seg, ws):
+        xs_ = seg.permute(0, 3, 1, 2)
+        return [F.conv2d(F.relu(F.conv2d(xs_, w1, b1, padding=1)), w2, b2,
+                         padding=1) for w1, b1, w2, b2 in ws]
 
     def bound_spade(seg, k1, b1, branches):
+        """(operations ms, bytes ms, FLOP) of one call at the card's peaks."""
         N, H, W, cnc = seg.shape
         px = N * H * W
         flops = sum(2 * 9 * px * (cnc * kg.shape[2] + kg.shape[2] * 2 * kg.shape[3])
@@ -417,36 +471,46 @@ def run(torch) -> int:
         nbytes += sum(px * 2 * kg.shape[3] * seg.element_size()
                       for kg, _, _, _ in branches)
         peak = PEAK_BF16_FLOPS if seg.dtype == torch.bfloat16 else PEAK_F32_FLOPS
-        return flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+        return flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3, flops
 
     rows = []
     t_sc = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
             "bound_ms": 0.0}
     ops_ms = bytes_ms = 0.0
     per_call = []
-    for args in calls["spade_cond"]:
-        k = device_ms(torch, lambda: spade_cond(*args), reps=5)
-        p = device_ms(torch, lambda: spade_cond_plain(*args), reps=5)
-        lib = device_ms(torch, lambda: library_spade(*args), reps=5)
-        t_ops, t_bytes = bound_spade(*args)
+    for seg, pack in calls["spade_cond"]:
+        ws = library_weights(*pack.args)
+        k = device_ms(torch, lambda: spade_cond_packed(seg, pack), reps=5)
+        p = device_ms(torch, lambda: spade_cond_plain(seg, *pack.args), reps=5)
+        lib = device_ms(torch, lambda: library_spade(seg, ws), reps=5)
+        t_ops, t_bytes, flops = bound_spade(seg, *pack.args)
         b = max(t_ops, t_bytes)
         ops_ms += t_ops
         bytes_ms += t_bytes
         t_sc["ms"] += k
-        t_sc["call_ms"] += cuda_ms(torch, lambda: spade_cond(*args))
+        t_sc["call_ms"] += cuda_ms(torch, lambda: spade_cond_packed(seg, pack))
         t_sc["plain_ms"] += p
         t_sc["library_ms"] += lib
         t_sc["bound_ms"] += b
-        seg = args[0]
         per_call.append(f"  spade_cond {tuple(seg.shape)} "
-                        f"nc={[br[0].shape[3] for br in args[3]]}: kernel {k:.3f} "
-                        f"plain {p:.3f} library {lib:.3f} bound {b:.4f} ms")
+                        f"nc={[c // 2 for c in pack.couts]}: kernel {k:.4f} "
+                        f"plain {p:.4f} library {lib:.4f} bound {b:.4f} ms; "
+                        f"{flops / k / 1e9:.1f} TFLOP/s, {100 * b / k:.1f}% "
+                        f"of the bound")
     for line in per_call:
         log(line)
-    log(f"spade_cond bound terms summed over the calls: operations "
+    log(f"spade_cond over the {len(per_call)} calls: kernel {t_sc['ms']:.4f} ms, "
+        f"bound {t_sc['bound_ms']:.4f} ms ({100 * t_sc['bound_ms'] / t_sc['ms']:.1f}%), "
+        f"library {t_sc['library_ms']:.4f} ms; bound terms: operations "
         f"{ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms")
+    if not t_sc["ms"] < t_sc["library_ms"]:
+        log("spade_cond: NOTE the kernel is slower than the library call")
     rows.append({
         "name": "spade_cond", "route": "cuda",
+        "design": "bf16: both convs on wgmma from shared memory, the 3x3 "
+                  "im2col of the second folded into its A descriptors, weights "
+                  "packed once and streamed by a cp.async.bulk ring; f32: CUDA "
+                  "cores",
         "source": "climategan_torch/csrc/spade_cond.cu",
         "replaces": "climategan_tpu/ops/pallas/spade.py:119",
         "launches": launches["spade_cond"],

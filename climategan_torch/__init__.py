@@ -1,10 +1,11 @@
 """climategan_torch: the PyTorch / CUDA port of climategan_tpu for NVIDIA
 Hopper (H100).
 
-Flood inference (Masker + SPADE Painter) runs end to end; its two kernels
-are hand-written for sm_90a: ``kernels/spade_cond.py`` (CUDA C++ in
-``csrc/``) and ``kernels/masked_blend.py`` (Triton). Entry point:
-``climategan_torch.inference.build_infer_fn``.
+``infer`` with all three events (flood, wildfire, smog) runs end to end;
+its five kernels are hand-written for sm_90a: ``spade_cond`` (tensor cores
+in bf16), ``smog_tail``, ``fire_color_grade`` and ``fire_paste`` (CUDA C++
+in ``csrc/``) and ``masked_blend`` (Triton), under ``kernels/``. Entry
+point: ``climategan_torch.inference.build_infer_fn``.
 """
 
 __version__ = "0.1.0"

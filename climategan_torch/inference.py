@@ -16,6 +16,7 @@ import torch
 
 from climategan_torch.events.fire import add_fire
 from climategan_torch.events.smog import add_smog
+from climategan_torch.models.blocks import pack_spade_weights
 from climategan_torch.models.generator import (
     GenConfig,
     OmniGenerator,
@@ -51,7 +52,8 @@ def build_infer_fn(
     G is built in f32 with weights from ``state_dict`` (reference key
     layout, loaded strictly; spectral kernels baked from the loaded values)
     or, without one, random weights from ``seed``; it then moves to
-    ``device`` in ``dtype``. ``bin_value < 0`` keeps the smooth mask.
+    ``device`` in ``dtype``, and its SPADE weights are packed for the
+    ``spade_cond`` kernel once. ``bin_value < 0`` keeps the smooth mask.
     ``uniform`` is the (9, 9) Perlin draw tensor (see ops/perlin.py);
     without it the draws come from ``generator``. ``g_value`` is the
     wildfire filter's green value (see events/fire.py); without it, it is
@@ -66,6 +68,7 @@ def build_infer_fn(
         G = OmniGenerator(GenConfig.from_opts(opts))
         G.load_state_dict(state_dict, strict=True)
     G = G.to(device=device, dtype=dtype).eval()
+    pack_spade_weights(G)
 
     @torch.inference_mode()
     def infer(x, uniform: Optional[torch.Tensor] = None,

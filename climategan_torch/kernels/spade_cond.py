@@ -1,12 +1,21 @@
 """``spade_cond``: the fused SPADE conditioning MLP.
 
 Replaces the Pallas TPU kernel ``climategan_tpu/ops/pallas/spade.py:
-spade_cond``. The kernel is CUDA C++ for sm_90a in ``csrc/spade_cond.cu``,
-bound through ``ctypes``. Its bound on an H100 is operations (about 1,150
-FLOP per output byte at the painter's shapes); this first version sums on
-the CUDA cores in f32 and keeps the hid-channel activation of each 8x16
-output tile in shared memory, so it never reaches device memory. Tensor-core
-(wgmma) work is left for a later version.
+spade_cond``. The kernels are CUDA C++ for sm_90a in ``csrc/spade_cond.cu``,
+bound through ``ctypes``. Their bound on an H100 is operations (about 1,150
+FLOP per output byte at the painter's shapes). Both keep the hid-channel
+activation of each 8x16 output tile in shared memory, so it never reaches
+device memory:
+
+* bf16 ("wgmma" route): both convs on the tensor cores, the second as an
+  implicit GEMM on ``wgmma`` with the weights streamed through a ring of
+  asynchronous bulk copies; the activation is rounded to bf16 before it, as
+  the JAX kernel rounds it to its working dtype;
+* f32 ("fma" route): the port's first, CUDA-core kernel, the correctness
+  path (TF32 would not hold its 1e-4 bar).
+
+The weights are packed once into the route's layout (``pack_spade_cond``),
+when the model is built; ``spade_cond_packed`` runs on a pack.
 
 Layout, as in the JAX function:
     seg  (N, H, W, cnc)              conditioning map at the SPADE's size
@@ -22,6 +31,7 @@ Both convs pad with zeros (the activation is 0 outside the image).
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
 import torch
@@ -30,8 +40,12 @@ import torch.nn.functional as F
 from climategan_torch.kernels import launches
 
 Branch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
+FMA_CHUNK = 64        # CHUNK in csrc/spade_cond.cu: the f32 kernel's N step
+TILE = (8, 16)        # output tile of both kernels (TH, TW)
+MIN_BLOCKS = 2 * 132  # the bf16 kernel: two resident blocks on each SM
+MAX_BRANCHES = 4
+K1 = 80               # K1 in csrc/spade_cond.cu: stage 1's 10 taps x 8 channels
 
 
 def spade_cond_plain(seg: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
@@ -49,30 +63,65 @@ def spade_cond_plain(seg: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
     return outs
 
 
-def _lib():
-    from climategan_torch.kernels import _build
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
-    lib = _build.load("spade_cond")
-    if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.spade_cond_launch.argtypes = [
-            i, p, p, p, i, i, i, i, i, i,
-            ctypes.POINTER(i), ctypes.POINTER(i), ctypes.POINTER(i),
-            ctypes.POINTER(p), ctypes.POINTER(p), ctypes.POINTER(p), p]
-        lib.spade_cond_launch.restype = i
-        lib.spade_cond_chunk.restype = i
-        lib.spade_cond_max_branches.restype = i
-        lib.spade_cond_smem_bytes.argtypes = [i, i]
-        lib.spade_cond_smem_bytes.restype = ctypes.c_longlong
-        lib.spade_cond_error_string.argtypes = [i]
-        lib.spade_cond_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
+
+def chunk_width(couts: Sequence[int]) -> int:
+    """N of the bf16 kernel's wgmma: 40 when every branch has 2nc <= 40,
+    else 80; a branch runs as ceil(2nc / N) chunks."""
+    return 40 if max(couts) <= 40 else 80
+
+
+def plan_groups(N: int, H: int, W: int, chunks: Sequence[int]) -> int:
+    """Chunks per block of the bf16 kernel: all of a branch's chunks, halved
+    until the grid has MIN_BLOCKS blocks or a block takes one chunk."""
+    tiles = N * -(-H // TILE[0]) * -(-W // TILE[1])
+    group = max(chunks)
+    while group > 1 and tiles * sum(-(-c // group) for c in chunks) < MIN_BLOCKS:
+        group = (group + 1) // 2
+    return group
+
+
+def block_chunks(chunks: Sequence[int], group: int) -> List[Tuple[int, int, int]]:
+    """(branch, first chunk, end chunk) of each block along grid z within
+    one image, decoded as the bf16 kernel decodes blockIdx.z."""
+    out = []
+    for b, c in enumerate(chunks):
+        out += [(b, c0, min(c, c0 + group)) for c0 in range(0, c, group)]
+    return out
+
+
+@dataclass
+class SpadePack:
+    """The weights of one ``spade_cond`` call in a kernel's layout.
+
+    ``args`` keeps (k1, b1, branches) in the JAX layout (views of the
+    module's parameters where it can), for the plain version and checks.
+    route "wgmma" (bf16 kernel): w1 flat, per branch (10, hid_pad, 8):
+    element [tap, c, ci] is k1[tap // 3, tap % 3, ci, c], zero for tap 9,
+    ci >= cnc and c >= hid; b1 f32 (sum hid_pad,); per branch w2 (chunks, 9, hid_pad / 16,
+    nt / 8, 2, 8, 8): element [c, tap, ks, g, h, r, e] is [kg|kb][tap,
+    16 ks + 8 h + e, nt c + 8 g + r], zero-padded; b2 f32 (chunks * nt,).
+    route "fma" (f32 kernel): w1 = k1 and b1 contiguous; per branch w2 =
+    [kg|kb] (3, 3, hid, cpad) with cpad a multiple of FMA_CHUNK, b2 = [bg|bb].
+    """
+    route: str
+    args: Tuple[torch.Tensor, torch.Tensor, List[Branch]]
+    hids: List[int]
+    couts: List[int]
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: List[torch.Tensor]
+    b2: List[torch.Tensor]
+    hid_pads: List[int]
+    nt: int = 0
+    chunks: Tuple[int, ...] = ()
 
 
 def _check(seg, k1, b1, branches):
     dev, dt = seg.device, seg.dtype
-    if dt not in _DTYPES:
+    if dt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"spade_cond takes float32 or bfloat16, got {dt}")
     if seg.ndim != 4:
         raise ValueError(f"seg must be (N, H, W, cnc), got {tuple(seg.shape)}")
@@ -81,6 +130,9 @@ def _check(seg, k1, b1, branches):
     if tuple(k1.shape) != (3, 3, cnc, hid_total) or tuple(b1.shape) != (hid_total,):
         raise ValueError(f"k1/b1 must be (3, 3, {cnc}, hid)/(hid,), got "
                          f"{tuple(k1.shape)}/{tuple(b1.shape)}")
+    if not 1 <= len(branches) <= MAX_BRANCHES:
+        raise ValueError(f"spade_cond takes 1..{MAX_BRANCHES} branches, got "
+                         f"{len(branches)}")
     tensors = [seg, k1, b1]
     for kg, bg, kb, bb in branches:
         hid, nc = kg.shape[2], kg.shape[3]
@@ -95,56 +147,168 @@ def _check(seg, k1, b1, branches):
         if t.device != dev or t.dtype != dt:
             raise ValueError("spade_cond needs every tensor on one device "
                              f"in one dtype ({dev}, {dt})")
-    if not seg.is_contiguous() or not k1.is_contiguous() or not b1.is_contiguous():
-        raise ValueError("spade_cond needs contiguous seg, k1 and b1")
+    if not seg.is_contiguous():
+        raise ValueError("spade_cond needs a contiguous seg")
 
 
-def spade_cond(seg: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
-               branches: Sequence[Branch]) -> List[torch.Tensor]:
-    """Per-branch [gamma | beta] maps; see the module docstring for the
-    layout. CPU tensors take the plain version; CUDA tensors launch the
-    kernel, and anything the kernel does not take raises."""
+@torch.no_grad()
+def pack_spade_cond(k1: torch.Tensor, b1: torch.Tensor,
+                    branches: Sequence[Branch], route: str = None) -> SpadePack:
+    """Packs the weights of one call for a kernel: route "wgmma" (default
+    for bf16) or "fma" (default for f32). Zero-padding hid to a multiple of
+    32 and each tap's cnc channels to 8 is exact; a "wgmma" pack takes
+    cnc <= 8, and what the kernel cannot hold raises at launch."""
+    route = route or ("wgmma" if k1.dtype == torch.bfloat16 else "fma")
+    cnc = k1.shape[2]
+    hids = [kg.shape[2] for kg, _, _, _ in branches]
+    couts = [2 * kg.shape[3] for kg, _, _, _ in branches]
+    args = (k1, b1, list(branches))
+    w2s = [torch.cat([kg, kb], dim=-1) for kg, _, kb, _ in branches]
+    b2s = [torch.cat([bg, bb]) for _, bg, _, bb in branches]
+    if route == "fma":
+        w2s = [F.pad(w, (0, _up(c, FMA_CHUNK) - c)).contiguous()
+               for w, c in zip(w2s, couts)]
+        return SpadePack(route, args, hids, couts, k1.contiguous(),
+                         b1.contiguous(), w2s, [b.contiguous() for b in b2s],
+                         hids)
+    if route != "wgmma":
+        raise ValueError(f"unknown spade_cond route {route!r}")
+    if cnc > 8:
+        raise ValueError(f"spade_cond: the bf16 kernel takes cnc <= 8, got {cnc}")
+    nt = chunk_width(couts)
+    hid_pads = [_up(h, 32) for h in hids]
+    chunks = tuple(-(-c // nt) for c in couts)
+    w1s, b1s, off = [], [], 0
+    for h, hp in zip(hids, hid_pads):
+        w = k1[..., off:off + h].reshape(9, cnc, h).permute(0, 2, 1)
+        w1s.append(F.pad(w, (0, 8 - cnc, 0, hp - h, 0, 1)).reshape(-1))
+        b1s.append(F.pad(b1[off:off + h].float(), (0, hp - h)))
+        off += h
+    packed_w2, packed_b2 = [], []
+    for w, b, h, hp, c, nch in zip(w2s, b2s, hids, hid_pads, couts, chunks):
+        w = F.pad(w, (0, nch * nt - c, 0, hp - h)).reshape(
+            9, hp // 16, 2, 8, nch, nt // 8, 8)
+        packed_w2.append(w.permute(4, 0, 1, 5, 2, 6, 3).contiguous())
+        packed_b2.append(F.pad(b.float(), (0, nch * nt - c)))
+    return SpadePack(route, args, hids, couts, torch.cat(w1s), torch.cat(b1s),
+                     packed_w2, packed_b2, hid_pads, nt, chunks)
+
+
+def spade_cond_packed_plain(seg: torch.Tensor, pack: SpadePack) -> List[torch.Tensor]:
+    """The plain version of ``spade_cond_packed``. A "wgmma" pack is read as
+    the kernel reads it: the 9 taps' 8-channel windows times the packed w1,
+    the activation rounded to seg's dtype, then per tap a product with the
+    unpacked w2, summed in f32; an "fma" pack is the f32 kernel's layout
+    (``[kg|kb]`` padded), so its plain version is ``spade_cond_plain`` on the
+    pack's own arguments."""
+    if pack.route == "fma":
+        return spade_cond_plain(seg, *pack.args)
+    N, H, W, cnc = seg.shape
+    dt = seg.dtype
+    x = F.pad(seg.float(), (0, 8 - cnc, 1, 1, 1, 1))
+    cols = torch.cat([x[:, ky:ky + H, kx:kx + W] for ky in range(3)
+                      for kx in range(3)], dim=-1)
+    cols = F.pad(cols, (0, K1 - 9 * 8))
+    outs, off = [], 0
+    for w2, b2, hp, cout in zip(pack.w2, pack.b2, pack.hid_pads, pack.couts):
+        w1 = pack.w1[off * K1:(off + hp) * K1].float()
+        w1 = w1.reshape(10, hp, 8).transpose(0, 1).reshape(hp, K1)
+        act = torch.relu(cols @ w1.t() + pack.b1[off:off + hp]).to(dt).float()
+        a = F.pad(act, (0, 0, 1, 1, 1, 1))
+        w = w2.float().permute(1, 2, 4, 6, 0, 3, 5).reshape(9, hp, -1)
+        acc = sum(a[:, ky:ky + H, kx:kx + W] @ w[3 * ky + kx]
+                  for ky in range(3) for kx in range(3))
+        outs.append((acc + b2)[..., :cout].to(dt).contiguous())
+        off += hp
+    return outs
+
+
+def _lib():
+    from climategan_torch.kernels import _build
+
+    lib = _build.load("spade_cond")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        ip, pp = ctypes.POINTER(i), ctypes.POINTER(p)
+        lib.spade_cond_launch.argtypes = [
+            p, p, p, i, i, i, i, i, i, ip, ip, ip, pp, pp, pp, p]
+        lib.spade_cond_launch.restype = i
+        lib.spade_cond_smem_bytes.argtypes = [i, i]
+        lib.spade_cond_smem_bytes.restype = ctypes.c_longlong
+        lib.spade_cond_tc_launch.argtypes = [
+            p, p, p, i, i, i, i, i, i, ip, ip, ip, pp, pp, pp, i, p]
+        lib.spade_cond_tc_launch.restype = i
+        lib.spade_cond_tc_smem_bytes.argtypes = [i, i]
+        lib.spade_cond_tc_smem_bytes.restype = ctypes.c_longlong
+        lib.spade_cond_error_string.argtypes = [i]
+        lib.spade_cond_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def spade_cond_packed(seg: torch.Tensor, pack: SpadePack) -> List[torch.Tensor]:
+    """Per-branch [gamma | beta] maps from packed weights. CPU tensors take
+    the plain version; a CUDA bf16 seg launches the tensor-core kernel on a
+    "wgmma" pack and a CUDA f32 seg the CUDA-core kernel on an "fma" pack;
+    anything else raises."""
     if seg.device.type == "cpu":
-        return spade_cond_plain(seg, k1, b1, branches)
+        return spade_cond_packed_plain(seg, pack)
     if seg.device.type != "cuda":
         raise ValueError(f"spade_cond runs on cuda or cpu, not {seg.device}")
-    _check(seg, k1, b1, branches)
+    _check(seg, *pack.args)
+    want = {torch.bfloat16: "wgmma", torch.float32: "fma"}[seg.dtype]
+    if pack.route != want:
+        raise ValueError(f"a {seg.dtype} seg needs a {want!r} pack, got "
+                         f"{pack.route!r}")
+    for t in [pack.w1, pack.b1, *pack.w2, *pack.b2]:
+        if t.device != seg.device:
+            raise ValueError("the pack lies on another device than seg")
     lib = _lib()
-    nb = len(branches)
-    if not 1 <= nb <= lib.spade_cond_max_branches():
-        raise ValueError(f"spade_cond takes 1..{lib.spade_cond_max_branches()} "
-                         f"branches, got {nb}")
     N, H, W, cnc = seg.shape
-    hids = [kg.shape[2] for kg, _, _, _ in branches]
-    smem = lib.spade_cond_smem_bytes(max(hids), cnc)
+    nb = len(pack.w2)
+    if pack.route == "wgmma":
+        if len(set(pack.hid_pads)) != 1 or pack.hid_pads[0] > 128:
+            raise ValueError("spade_cond: the bf16 kernel takes branches of one "
+                             f"hid padded to 32, at most 128; got {pack.hids}")
+        smem = lib.spade_cond_tc_smem_bytes(max(pack.hid_pads), pack.nt)
+    else:
+        smem = lib.spade_cond_smem_bytes(max(pack.hids), cnc)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"spade_cond: hid {max(hids)} with cnc {cnc} needs "
-                         f"{smem} B of shared memory, more than {_SMEM_LIMIT}")
-    chunk = lib.spade_cond_chunk()
-    couts, cpads, w2s, b2s, outs = [], [], [], [], []
-    for kg, bg, kb, bb in branches:
-        cout = 2 * kg.shape[3]
-        cpad = -(-cout // chunk) * chunk
-        w2 = F.pad(torch.cat([kg, kb], dim=-1), (0, cpad - cout)).contiguous()
-        couts.append(cout)
-        cpads.append(cpad)
-        w2s.append(w2)
-        b2s.append(torch.cat([bg, bb]).contiguous())
-        outs.append(torch.empty((N, H, W, cout), device=seg.device, dtype=seg.dtype))
-
-    ints = ctypes.c_int * nb
-    ptrs = ctypes.c_void_p * nb
+        raise ValueError(f"spade_cond: hid {max(pack.hids)} with cnc {cnc} "
+                         f"needs {smem} B of shared memory, more than "
+                         f"{_SMEM_LIMIT}")
+    outs = [torch.empty((N, H, W, c), device=seg.device, dtype=seg.dtype)
+            for c in pack.couts]
+    ints, ptrs = ctypes.c_int * nb, ctypes.c_void_p * nb
+    w2p = ptrs(*[t.data_ptr() for t in pack.w2])
+    b2p = ptrs(*[t.data_ptr() for t in pack.b2])
+    outp = ptrs(*[t.data_ptr() for t in outs])
     with torch.cuda.device(seg.device):
         stream = torch.cuda.current_stream(seg.device).cuda_stream
-        err = lib.spade_cond_launch(
-            _DTYPES[seg.dtype], seg.data_ptr(), k1.data_ptr(), b1.data_ptr(),
-            N, H, W, cnc, k1.shape[-1], nb,
-            ints(*hids), ints(*couts), ints(*cpads),
-            ptrs(*[t.data_ptr() for t in w2s]),
-            ptrs(*[t.data_ptr() for t in b2s]),
-            ptrs(*[t.data_ptr() for t in outs]), stream)
+        if pack.route == "wgmma":
+            err = lib.spade_cond_tc_launch(
+                seg.data_ptr(), pack.w1.data_ptr(), pack.b1.data_ptr(),
+                N, H, W, cnc, pack.nt, nb, ints(*pack.hid_pads),
+                ints(*pack.couts), ints(*pack.chunks), w2p, b2p, outp,
+                plan_groups(N, H, W, pack.chunks), stream)
+        else:
+            err = lib.spade_cond_launch(
+                seg.data_ptr(), pack.w1.data_ptr(), pack.b1.data_ptr(),
+                N, H, W, cnc, sum(pack.hids), nb, ints(*pack.hids),
+                ints(*pack.couts), ints(*[w.shape[-1] for w in pack.w2]),
+                w2p, b2p, outp, stream)
     if err != 0:
         raise RuntimeError("spade_cond launch failed: "
                            + lib.spade_cond_error_string(err).decode())
     launches["spade_cond"] += 1
     return outs
+
+
+def spade_cond(seg: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
+               branches: Sequence[Branch]) -> List[torch.Tensor]:
+    """The JAX signature: packs for seg's dtype, then ``spade_cond_packed``.
+    CPU tensors take the plain version."""
+    if seg.device.type == "cpu":
+        return spade_cond_plain(seg, k1, b1, branches)
+    _check(seg, k1, b1, branches)
+    return spade_cond_packed(seg, pack_spade_cond(k1, b1, branches))

@@ -11,7 +11,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from climategan_torch.models.norms import SNConv, SPADE, dual_spade, nhwc
+from climategan_torch.models.norms import (
+    SNConv,
+    SPADE,
+    dual_spade,
+    nhwc,
+    pack_dual,
+)
 from climategan_torch.ops.interpolate import resize, upsample_nearest
 
 _PAD_MODES = {"zero": "constant", "reflect": "reflect", "replicate": "replicate"}
@@ -177,15 +183,35 @@ class SPADEResnetBlock(nn.Module):
             self.norm_s = SPADE(fin, cond_nc)
         self.norm_0 = SPADE(fin, cond_nc)
         self.norm_1 = SPADE(fmiddle, cond_nc)
+        self.shortcut_pack = None
+
+    def pack_weights(self) -> None:
+        """Packs the conditioning weights of this block's launches once."""
+        if self.learned_shortcut:
+            self.shortcut_pack = pack_dual(self.norm_s, self.norm_0)
+        else:
+            self.norm_0.pack_weights()
+        self.norm_1.pack_weights()
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
         """``seg``: NCHW conditioning map at any size (nearest-resized)."""
         seg = nhwc(resize(seg, x.shape[-2:], "nearest").to(x.dtype))
         if self.learned_shortcut:
-            x_s, dx = dual_spade(x, seg, self.norm_s, self.norm_0)
+            x_s, dx = dual_spade(x, seg, self.norm_s, self.norm_0,
+                                self.shortcut_pack)
             x_s = self.conv_s(x_s)
         else:
             x_s, dx = x, self.norm_0(x, seg)
         dx = self.conv_0(lrelu(dx))
         dx = self.conv_1(lrelu(self.norm_1(dx, seg)))
         return x_s + dx
+
+
+def pack_spade_weights(model: nn.Module) -> None:
+    """Packs every SPADE block's conditioning weights into the kernels'
+    layout, so that a forward re-lays out no weights. Call it after the
+    model has moved to its device and dtype, and again after any move or
+    weight load."""
+    for m in model.modules():
+        if isinstance(m, SPADEResnetBlock):
+            m.pack_weights()

@@ -9,13 +9,17 @@ dict loads with plain ``load_state_dict``:
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from climategan_torch.kernels.spade_cond import spade_cond
+from climategan_torch.kernels.spade_cond import (
+    SpadePack,
+    pack_spade_cond,
+    spade_cond_packed,
+)
 
 
 def _l2normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -112,7 +116,10 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
 class SPADE(nn.Module):
     """Spatially-adaptive instance norm: ``instance_norm(x) * (1 + gamma) +
     beta`` with [gamma|beta] from the ``spade_cond`` kernel over the
-    conditioning map."""
+    conditioning map. ``pack_weights`` packs the conditioning weights into
+    the kernel's layout once (``pack_spade_weights`` does it for a whole
+    model, after it has moved to its device and dtype); until then each
+    call packs its own."""
 
     def __init__(self, norm_nc: int, cond_nc: int, nhidden: int = 128):
         super().__init__()
@@ -120,18 +127,22 @@ class SPADE(nn.Module):
             nn.Conv2d(cond_nc, nhidden, 3, padding=1), nn.ReLU())
         self.mlp_gamma = nn.Conv2d(nhidden, norm_nc, 3, padding=1)
         self.mlp_beta = nn.Conv2d(nhidden, norm_nc, 3, padding=1)
+        self.pack = None
 
     def shared_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """mlp_shared as (HWIO kernel, bias)."""
+        """mlp_shared as (HWIO kernel, bias), views of the parameters."""
         conv = self.mlp_shared[0]
         return conv.weight.permute(2, 3, 1, 0), conv.bias
 
     def branch(self):
         """(kg, bg, kb, bb) with HWIO kernels, a ``spade_cond`` branch."""
-        return (self.mlp_gamma.weight.permute(2, 3, 1, 0).contiguous(),
-                self.mlp_gamma.bias,
-                self.mlp_beta.weight.permute(2, 3, 1, 0).contiguous(),
-                self.mlp_beta.bias)
+        return (self.mlp_gamma.weight.permute(2, 3, 1, 0), self.mlp_gamma.bias,
+                self.mlp_beta.weight.permute(2, 3, 1, 0), self.mlp_beta.bias)
+
+    def pack_weights(self) -> SpadePack:
+        k1, b1 = self.shared_weights()
+        self.pack = pack_spade_cond(k1, b1, [self.branch()])
+        return self.pack
 
     @staticmethod
     def modulate(normalized: torch.Tensor, gb: torch.Tensor) -> torch.Tensor:
@@ -142,20 +153,30 @@ class SPADE(nn.Module):
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
         """``seg``: NHWC conditioning map already at x's spatial size."""
-        k1, b1 = self.shared_weights()
-        (gb,) = spade_cond(seg, k1.contiguous(), b1, [self.branch()])
+        pack = self.pack
+        if pack is None:
+            k1, b1 = self.shared_weights()
+            pack = pack_spade_cond(k1, b1, [self.branch()])
+        (gb,) = spade_cond_packed(seg, pack)
         return self.modulate(instance_norm(x), gb)
 
 
-def dual_spade(x: torch.Tensor, seg: torch.Tensor, norm_a: SPADE,
-               norm_b: SPADE) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Two SPADEs over the same (x, seg), as one ``spade_cond`` launch with
-    the two mlp_shared convs concatenated (a SPADE block's norm_s and
-    norm_0); the instance norm runs once."""
+def pack_dual(norm_a: SPADE, norm_b: SPADE) -> SpadePack:
+    """One pack for two SPADEs over the same seg: the two mlp_shared convs
+    concatenated, one branch each."""
     ka, ba = norm_a.shared_weights()
     kb, bb = norm_b.shared_weights()
-    gb_a, gb_b = spade_cond(seg, torch.cat([ka, kb], dim=-1).contiguous(),
-                            torch.cat([ba, bb]),
-                            [norm_a.branch(), norm_b.branch()])
+    return pack_spade_cond(torch.cat([ka, kb], dim=-1), torch.cat([ba, bb]),
+                           [norm_a.branch(), norm_b.branch()])
+
+
+def dual_spade(x: torch.Tensor, seg: torch.Tensor, norm_a: SPADE,
+               norm_b: SPADE, pack: Optional[SpadePack] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two SPADEs over the same (x, seg), as one ``spade_cond`` launch with
+    the two mlp_shared convs concatenated (a SPADE block's norm_s and
+    norm_0), from ``pack`` (``pack_dual``) or packed for this call; the
+    instance norm runs once."""
+    gb_a, gb_b = spade_cond_packed(seg, pack or pack_dual(norm_a, norm_b))
     normalized = instance_norm(x)
     return SPADE.modulate(normalized, gb_a), SPADE.modulate(normalized, gb_b)

@@ -17,7 +17,12 @@ from climategan_torch.kernels.fire_color_grade import (
 from climategan_torch.kernels.fire_paste import fire_paste, fire_paste_plain
 from climategan_torch.kernels.masked_blend import masked_blend, masked_blend_plain
 from climategan_torch.kernels.smog_tail import smog_tail, smog_tail_plain
-from climategan_torch.kernels.spade_cond import spade_cond, spade_cond_plain
+from climategan_torch.kernels.spade_cond import (
+    pack_spade_cond,
+    spade_cond,
+    spade_cond_packed,
+    spade_cond_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -29,7 +34,16 @@ SPADE_CASES = {
     "head_0": dict(N=2, H=5, W=5, cnc=3, hids=(128,), ncs=(640,)),
     "up_spade_dual": dict(N=1, H=40, W=40, cnc=3, hids=(128, 128),
                           ncs=(160, 160)),
+    # the painter's skinny 640^2 widths at a ragged size, and a hid that
+    # the bf16 kernel pads (24 -> 32)
+    "skinny_nc20": dict(N=2, H=37, W=91, cnc=3, hids=(128,), ncs=(20,)),
+    "skinny_nc40": dict(N=2, H=37, W=91, cnc=3, hids=(128,), ncs=(40,)),
+    "skinny_dual": dict(N=2, H=37, W=91, cnc=3, hids=(128, 128),
+                        ncs=(40, 40)),
+    "hid_24": dict(N=1, H=20, W=33, cnc=3, hids=(24,), ncs=(20,)),
 }
+BF16_CASES = ["head_0", "up_spade_dual", "skinny_nc20", "skinny_nc40",
+              "skinny_dual", "hid_24"]
 
 
 def _device():
@@ -70,14 +84,19 @@ def test_spade_cond_f32_matches_plain(case):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("case", ["head_0", "up_spade_dual"])
+@pytest.mark.parametrize("case", BF16_CASES)
 def test_spade_cond_bf16_within_one_ulp_of_f32_plain(case):
-    """bf16 in, f32 sums, bf16 out: against the f32 plain version on the
-    same bf16 inputs, the error is the output's own rounding (half a bf16
-    ulp) plus f32 reordering; the bar is one ulp of the output scale."""
+    """bf16 in, f32 sums, the activation and the output rounded to bf16 (the
+    tensor-core kernel, one launch): against the f32 plain version on the
+    same bf16 inputs the error is the output's own rounding (half a bf16
+    ulp) plus the activation's; the bar is one ulp of the output scale.
+    head_0 (nc 640 at 5x5, batch 2) runs as N-split chunks."""
     dev = _device()
     args = _to(_spade_args(**SPADE_CASES[case]), dev, torch.bfloat16)
+    reset_launches()
     got = spade_cond(*args)
+    torch.cuda.synchronize()
+    assert launches["spade_cond"] == 1
     ref = spade_cond_plain(*_to(args, dev, torch.float32))
     for g, w in zip(got, ref):
         ulp = 2.0 ** (torch.floor(torch.log2(w.abs().max())) - 7)
@@ -95,6 +114,13 @@ def test_spade_cond_rejects_what_it_does_not_take():
     with pytest.raises(TypeError):
         spade_cond(seg.half(), k1.half(), b1.half(),
                    [tuple(t.half() for t in b) for b in branches])
+    f32_pack = pack_spade_cond(k1, b1, branches)
+    with pytest.raises(ValueError):  # a bf16 seg needs a "wgmma" pack
+        spade_cond_packed(seg.bfloat16(), f32_pack)
+    wide = _to(_spade_args(N=1, H=8, W=8, cnc=3, hids=(160,), ncs=(4,)), dev,
+               torch.bfloat16)
+    with pytest.raises(ValueError):  # the bf16 kernel takes hid <= 128
+        spade_cond(*wide)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -11,7 +11,17 @@ from climategan_tpu.ops.pallas.events import masked_blend as jax_masked_blend
 from climategan_tpu.ops.pallas.spade import spade_cond as jax_spade_cond
 from climategan_torch.kernels import launches, reset_launches
 from climategan_torch.kernels.masked_blend import masked_blend, masked_blend_plain
-from climategan_torch.kernels.spade_cond import _check, spade_cond, spade_cond_plain
+from climategan_torch.kernels.spade_cond import (
+    _check,
+    block_chunks,
+    chunk_width,
+    pack_spade_cond,
+    plan_groups,
+    spade_cond,
+    spade_cond_packed_plain,
+    spade_cond_plain,
+)
+from climategan_torch.models.generator import GenConfig
 
 
 def _spade_case(seed, N, H, W, cnc, hids, ncs, b1_value=None):
@@ -84,3 +94,106 @@ def test_spade_cond_rejects_mixed_devices_and_dtypes_before_launch():
     t = torch.from_numpy
     with pytest.raises(ValueError):
         _check(t(seg), t(k1).double(), t(b1), [tuple(map(t, b)) for b in branches])
+
+
+# the existing cases plus one at the painter's width (hid 128, nc 20, 8x16)
+PACK_CASES = {**SPADE_CASES,
+              "hid128_nc20": dict(seed=3, N=1, H=8, W=16, cnc=3, hids=(128,),
+                                  ncs=(20,))}
+
+
+def _jax_spade(seg, k1, b1, branches, dtype=jnp.float32):
+    return jax_spade_cond(jnp.asarray(seg, dtype), jnp.asarray(k1, dtype),
+                          jnp.asarray(b1, dtype),
+                          [tuple(jnp.asarray(a, dtype) for a in b)
+                           for b in branches], interpret=True)
+
+
+@pytest.mark.parametrize("case", sorted(PACK_CASES))
+def test_spade_cond_packed_plain_matches_jax_kernel(case):
+    """The bf16 kernel's packed layout, read back by its plain version in
+    f32, against the Pallas kernel in interpret mode (2e-5, as above)."""
+    seg, k1, b1, branches = _spade_case(**PACK_CASES[case])
+    t = torch.from_numpy
+    pack = pack_spade_cond(t(k1), t(b1), [tuple(map(t, b)) for b in branches],
+                           route="wgmma")
+    got = spade_cond_packed_plain(t(seg), pack)
+    want = _jax_spade(seg, k1, b1, branches)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_spade_cond_packed_plain_bf16_matches_jax_kernel():
+    """bf16 inputs: both round the activation to bf16 before the second
+    conv and the output once; within one bf16 ulp of the output scale."""
+    seg, k1, b1, branches = _spade_case(**PACK_CASES["hid128_nc20"])
+    bf = lambda a: torch.from_numpy(a).bfloat16()  # noqa: E731
+    pack = pack_spade_cond(bf(k1), bf(b1), [tuple(map(bf, b)) for b in branches])
+    assert pack.route == "wgmma"
+    (got,) = spade_cond_packed_plain(bf(seg), pack)
+    (want,) = _jax_spade(seg, k1, b1, branches, jnp.bfloat16)
+    want = np.asarray(want.astype(jnp.float32))
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    assert np.abs(got.float().numpy() - want).max() <= ulp
+
+
+def _main_path_calls(cfg: GenConfig, size: int = 640):
+    """(H, W, ncs) of each spade_cond launch of the painter, in order."""
+    nc, n_up = cfg.p_latent_dim, cfg.p_spade_n_up
+    s = size // 2 ** n_up
+    blocks = [(nc, nc, s), (nc, nc, 2 * s), (nc, nc, 4 * s)]
+    blocks += [(nc // 2 ** i, nc // 2 ** (i + 1), 8 * s * 2 ** i)
+               for i in range(n_up - 2)]
+    fin = nc // 2 ** (n_up - 2)
+    blocks.append((fin, fin, size))
+    calls = []
+    for fin, fout, hw in blocks:
+        calls.append((hw, hw, (fin, fin) if fin != fout else (fin,)))
+        calls.append((hw, hw, (min(fin, fout),)))
+    return calls
+
+
+def test_n_split_covers_every_channel_once_on_the_main_path():
+    calls = _main_path_calls(GenConfig())
+    assert len(calls) == 18
+    assert (640, 640, (40, 40)) in calls and (5, 5, (640,)) in calls
+    for H, W, ncs in calls:
+        couts = [2 * nc for nc in ncs]
+        nt = chunk_width(couts)
+        chunks = [-(-c // nt) for c in couts]
+        group = plan_groups(2, H, W, chunks)
+        blocks = block_chunks(chunks, group)
+        assert 2 * len(blocks) <= 65535
+        seen = [np.zeros(c, int) for c in couts]
+        for b, c0, c1 in blocks:
+            assert 0 <= c0 < c1 <= chunks[b] and c1 - c0 <= group
+            seen[b][c0 * nt:c1 * nt] += 1
+        assert all((s == 1).all() for s in seen), (H, W, ncs)
+        if H == 640:
+            assert nt in couts and group == 1  # unpadded N, one chunk a block
+
+
+def test_painter_launches_run_on_packs_built_once(monkeypatch):
+    """pack_spade_weights gives each spade_cond launch of a forward its own
+    pack, built before the forward; the forward packs nothing."""
+    from climategan_torch.models import norms
+    from climategan_torch.models.blocks import pack_spade_weights
+    from climategan_torch.models.painter import PainterSpadeDecoder
+
+    torch.manual_seed(0)
+    painter = PainterSpadeDecoder(latent_dim=16, spade_n_up=3).eval()
+    pack_spade_weights(painter)
+    built = {id(p) for m in painter.modules()
+             for p in (getattr(m, "pack", None), getattr(m, "shortcut_pack", None))
+             if p is not None}
+    used = []
+    run = norms.spade_cond_packed
+    monkeypatch.setattr(norms, "spade_cond_packed",
+                        lambda seg, pack: used.append(id(pack)) or run(seg, pack))
+    monkeypatch.setattr(norms, "pack_spade_cond", None)  # a forward may not pack
+    with torch.no_grad():
+        out = painter(torch.rand(1, 3, 32, 32))
+    assert out.shape == (1, 3, 32, 32)
+    assert len(used) == 10 and set(used) == built
