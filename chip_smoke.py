@@ -67,10 +67,28 @@ MAIN_PATH_LAUNCHES = {"spade_cond": 18, "masked_blend": 1, "smog_tail": 1,
                       "fire_color_grade": 1, "fire_paste": 1}
 EVENT_KERNELS = ("smog_tail", "fire_color_grade", "fire_paste")
 # f32 operations per pixel (smog_tail, fire_paste) or per value
-# (fire_color_grade), counting each compare, floor, exp and pow as one, as
-# csrc/events.cu computes them
-EVENT_OPS = {"smog_tail": 4 + 3 * 12, "fire_color_grade": 9,
+# (fire_color_grade) in csrc/events.cu's source, counting each compare,
+# select, floor, exp, exp2 and log2 as one: smog_tail's powers are
+# 2^(k * log2 b) on the hardware's exp2 and log2, three operations each. A
+# lower bound of what the card runs (events_breakdown.py prints the SASS
+# instruction counts); the bound of these kernels is bytes either way
+EVENT_OPS = {"smog_tail": 4 + 3 * 22, "fire_color_grade": 9,
              "fire_paste": 2 + 3 * 10}
+EVENT_DESIGN = {
+    "smog_tail": "a thread per 4 consecutive pixels per turn, the depth's "
+                 "and three channels' 16-byte loads issued before the math, "
+                 "16-byte stores; a grid of SMs x resident blocks, "
+                 "grid-stride, one image-index divide per 4 pixels; powers "
+                 "on the hardware's exp2 "
+                 "and log2, curves as selects; a scalar path for "
+                 "H*W % 4 != 0 or a misaligned base",
+    "fire_color_grade": "two 16-byte loads per thread per turn (a wave "
+                        "apart) before the math, 16-byte stores; a grid of "
+                        "SMs x resident blocks, grid-stride; every rounding "
+                        "explicit in the JAX order; a scalar path for a "
+                        "misaligned base and the last n % 4 values",
+    "fire_paste": "a thread per pixel, grid-stride",
+}
 
 
 def log(*args):
@@ -558,7 +576,7 @@ def run(torch) -> int:
         b_bytes = nbytes / PEAK_BYTES
         b_ops = EVENT_OPS[name] * units / PEAK_F32_FLOPS
         rows.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "design": EVENT_DESIGN[name],
             "source": "climategan_torch/csrc/events.cu",
             "replaces": replaces[name],
             "launches": launches[name],

@@ -5,33 +5,45 @@ The kernels take float32 NCHW planes: x (N, 3, H, W), an optional
 (N, 1, H, W) plane and an optional one-value device tensor, all contiguous
 on one device. The checks run on every device, so the CPU path rejects what
 the card's would.
+
+A call's host time is longer than the kernels' device time at 640^2, so
+the launch path is kept short: each launch function is typed and bound
+once, the device context is entered only when x is not on the current
+device, and the current stream is read once, as a raw handle.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 from climategan_torch.kernels import launches
 
+_P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+# argument types of <name>_launch, the stream last
+_ARGTYPES = {
+    "smog_tail": [_P, _P, _P, _LL, _LL, _F, _F, _F, _F, _F, _F, _P],
+    "fire_color_grade": [_P, _P, _P, _LL, _F, _F, _F, _P],
+    "fire_paste": [_P, _P, _P, _P, _LL, _LL, _F, _F, _P],
+}
+_FNS: Dict[str, Callable] = {}
 
-def _lib():
-    from climategan_torch.kernels import _build
 
-    lib = _build.load("events")
-    if not getattr(lib, "_typed", False):
-        p, ll, f, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_int
-        lib.smog_tail_launch.argtypes = [p, p, p, ll, ll, f, f, f, f, f, f, p]
-        lib.fire_color_grade_launch.argtypes = [p, p, p, ll, f, f, f, p]
-        lib.fire_paste_launch.argtypes = [p, p, p, p, ll, ll, f, f, p]
-        for fn in (lib.smog_tail_launch, lib.fire_color_grade_launch,
-                   lib.fire_paste_launch):
-            fn.restype = i
-        lib.events_error_string.argtypes = [i]
-        lib.events_error_string.restype = ctypes.c_char_p
-        lib._typed = True
-    return lib
+def _bind(lib: Optional[ctypes.CDLL] = None) -> None:
+    """Type the launch functions of ``lib`` once and launch through them;
+    by default the library of ``csrc/events.cu``, built at first use."""
+    if lib is None:
+        from climategan_torch.kernels import _build
+
+        lib = _build.load("events")
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _FNS[name] = fn
+    lib.events_error_string.argtypes = [ctypes.c_int]
+    lib.events_error_string.restype = ctypes.c_char_p
+    _FNS["error_string"] = lib.events_error_string
 
 
 def check(name: str, x: torch.Tensor, plane: Optional[torch.Tensor] = None,
@@ -42,31 +54,37 @@ def check(name: str, x: torch.Tensor, plane: Optional[torch.Tensor] = None,
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} takes float32 tensors, got {t.dtype}")
-    if x.ndim != 4 or x.shape[1] != 3:
-        raise ValueError(f"{name} needs x as (N, 3, H, W), got {tuple(x.shape)}")
-    if plane is not None and tuple(plane.shape) != (x.shape[0], 1) + tuple(x.shape[2:]):
+    shape = x.shape
+    if len(shape) != 4 or shape[1] != 3:
+        raise ValueError(f"{name} needs x as (N, 3, H, W), got {tuple(shape)}")
+    if plane is not None and plane.shape != (shape[0], 1, shape[2], shape[3]):
         raise ValueError(f"{name} needs a (N, 1, H, W) plane beside x "
-                         f"{tuple(x.shape)}, got {tuple(plane.shape)}")
+                         f"{tuple(shape)}, got {tuple(plane.shape)}")
     if scalar is not None and scalar.numel() != 1:
         raise ValueError(f"{name} needs a one-value tensor, got "
                          f"{tuple(scalar.shape)}")
+    device = x.device
     for t in tensors:
-        if t.device != x.device:
+        if t.device != device:
             raise ValueError(f"{name} needs its tensors on one device")
         if not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous tensors")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {device}")
 
 
 def launch(name: str, x: torch.Tensor, *args) -> None:
-    """Call ``<name>_launch(*args, stream)`` on x's device and count the
-    launch; a launch the runtime refuses raises."""
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, f"{name}_launch")(*args, stream)
+    """Call ``<name>_launch(*args, stream)`` on x's device and its current
+    stream, and count the launch; a launch the runtime refuses raises."""
+    if not _FNS:
+        _bind()
+    index = x.get_device()
+    if index == torch.cuda.current_device():
+        err = _FNS[name](*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = _FNS[name](*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
-                           + lib.events_error_string(err).decode())
+                           + _FNS["error_string"](err).decode())
     launches[name] += 1

@@ -3,9 +3,14 @@
 Replaces the Pallas TPU kernel ``climategan_tpu/ops/pallas/events.py:
 fire_color_grade``. The kernel is CUDA C++ for sm_90a in ``csrc/events.cu``,
 bound through ``ctypes``. Its bound on an H100 is bytes: three float32
-planes in and three out against six operations per value. One thread per
-value in a grid-stride loop; the batch's gray mean is read from the device
-once per thread, with no host round trip.
+planes in and three out against nine operations per value. A thread
+issues two 16-byte loads (4 values each, a wave of the grid apart) before
+any math and stores 16 bytes at a time; the grid fills the card once (SMs
+x resident blocks) and strides over the values; a scalar path takes a base
+off a 16-byte boundary and the last n % 4 values. The batch's gray mean is
+read from the device once per thread, with no host round trip. Every
+rounding is explicit and in the JAX order, since the value is floored
+twice.
 
 ``floor(clip(contrast * x + (1 - contrast) * mean, 0, 255))``, then
 ``floor(clip(brightness * v, 0, 255))``: torchvision's contrast and

@@ -3,11 +3,17 @@
 Replaces the Pallas TPU kernel ``climategan_tpu/ops/pallas/events.py:
 smog_tail``. The kernel is CUDA C++ for sm_90a in ``csrc/events.cu``, bound
 through ``ctypes``. Its bound on an H100 is bytes: seven float32 planes
-(x's three, the depth plane, the output's three) against about thirty
-operations per pixel, 13 of them transcendental. One thread per pixel reads
-its depth value once, computes the transmission ``t = exp(-beta * d)`` once
-and writes the pixel's three channels, in a grid-stride loop over
-contiguous planes; every rounding is explicit, so no multiply-add is fused.
+(x's three, the depth plane, the output's three) against about seventy
+operations per pixel, 13 of them transcendental. A thread takes 4
+consecutive pixels per turn: it issues the depth's and the three channels'
+16-byte loads before any math, computes the transmission
+``t = exp(-beta * d)`` once per pixel and stores 16 bytes per channel; the
+grid fills the card once (SMs x resident blocks) and strides over the
+planes. The powers are ``2^(k * log2 b)`` on the hardware's base-2 exp and
+log; up to the last branch the rounding follows the plain version, so a
+value at the curve's 2.5e-5 step (0.0031308) lands on the same side. A
+scalar path in the same kernel takes H*W not a multiple of 4 or a base off
+a 16-byte boundary.
 
 Per channel: sRGB -> linear, ``t * lin + (1 - t) * airlight``, linear ->
 sRGB (base held at 1e-12 or above before the power), then the yellow tint

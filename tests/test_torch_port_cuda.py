@@ -23,6 +23,11 @@ from climategan_torch.kernels.spade_cond import (
     spade_cond_packed,
     spade_cond_plain,
 )
+from tests.torch_port_common import (
+    GRADE_MEANS,
+    grade_edge_planes,
+    smog_edge_planes,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -137,7 +142,14 @@ def test_masked_blend_matches_plain(dtype):
                                atol=1e-6)
 
 
-EVENT_SHAPES = [(2, 37, 91), (2, 64, 128)]
+# (2, 37, 91), (1, 3, 5) and (3, 1, 3): H*W not a multiple of 4 (smog_tail's
+# scalar path, whose runs of 4 pixels cross into the next image, at
+# (3, 1, 3) in every run; fire_color_grade's ragged tail); (2, 64, 128):
+# the vector paths; (2, 640, 640): the main path's size; (2, 1024, 1024):
+# more work than one wave of the grid sized to the card, so its grid-stride
+# loop turns more than once
+EVENT_SHAPES = [(2, 37, 91), (1, 3, 5), (3, 1, 3), (2, 64, 128),
+                (2, 640, 640), (2, 1024, 1024)]
 SMOG = dict(airlight=0.76, beta=2.0, yellow=(224.0, 192.0, 29.0), alpha=20.0)
 
 
@@ -171,13 +183,83 @@ def test_event_kernel_matches_plain(name, shape):
     torch.cuda.synchronize()
     assert launches[name] == 1
     assert sum(launches.values()) == 1
-    want = plain(*args, **kw)
+    _hold_to_plain(name, got, plain(*args, **kw))
+
+
+def _hold_to_plain(name, got, want):
     if name == "smog_tail":
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     else:
         diff = (got - want).abs()
         assert diff.max() <= 1.0
         assert (diff == 0).float().mean() >= 0.9999
+
+
+def _misaligned(t, layout):
+    """t's values in a contiguous tensor whose base is not 16-byte aligned:
+    ``batch_slice`` is t[1:] of a batch one image larger (a base 3*H*W
+    floats on, with H*W not a multiple of 4); ``offset_by_one`` lies one
+    float past an aligned base."""
+    if layout == "batch_slice":
+        return torch.cat([t[:1], t])[1:]
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("layout,shape", [("batch_slice", (2, 37, 91)),
+                                          ("offset_by_one", (2, 64, 128))])
+@pytest.mark.parametrize("name", ["smog_tail", "fire_color_grade", "fire_paste"])
+def test_event_kernel_takes_a_misaligned_base(name, layout, shape):
+    """The scalar paths of the redesigned kernels: every (N, C, H, W) input
+    starts off a 16-byte boundary (the output, from the wrapper, does not)."""
+    dev = _device()
+    kernel, plain, args, kw = _event_args(name, dev, shape)
+    args = [_misaligned(a, layout) if a.ndim == 4 else a for a in args]
+    assert all(a.data_ptr() % 16 for a in args if a.ndim == 4)
+    reset_launches()
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches[name] == 1
+    _hold_to_plain(name, got, plain(*args, **kw))
+
+
+@pytest.mark.parametrize("layout", ["aligned", "offset_by_one"])
+def test_smog_tail_at_its_branch_points(layout):
+    """smog_edge_planes() through the vector path and the scalar path:
+    within atol 1e-5 of the plain version, so a linear value at 0.0031308
+    takes the plain version's side of the curve's 2.5e-5 step."""
+    dev = _device()
+    x, d = (torch.from_numpy(a).to(dev) for a in smog_edge_planes())
+    if layout != "aligned":
+        x, d = _misaligned(x, layout), _misaligned(d, layout)
+    got = smog_tail(x, d, **SMOG)
+    torch.testing.assert_close(got, smog_tail_plain(x, d, **SMOG), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("mean", GRADE_MEANS)
+def test_fire_color_grade_at_its_floor_steps_and_clamps(mean):
+    dev = _device()
+    x = torch.from_numpy(grade_edge_planes()).to(dev)
+    m = torch.tensor(mean, device=dev)
+    _hold_to_plain("fire_color_grade", fire_color_grade(x, m, 1.5, 0.73),
+                   fire_color_grade_plain(x, m, 1.5, 0.73))
+
+
+def test_smog_tail_gamma_sweep():
+    """The 2^20 float32 values k / 2^20 in every channel, with d = 0 (the
+    decode and encode round trip) and d = 1: within atol 1e-5 of the plain
+    version; the largest error prints under ``-s``."""
+    dev = _device()
+    grid = torch.arange(2 ** 20, device=dev, dtype=torch.float32) / 2 ** 20
+    x = grid.view(1, 1, 1024, 1024).expand(2, 3, -1, -1).contiguous()
+    d = torch.cat([torch.zeros(1, 1, 1024, 1024, device=dev),
+                   torch.ones(1, 1, 1024, 1024, device=dev)])
+    err = (smog_tail(x, d, **SMOG) - smog_tail_plain(x, d, **SMOG)).abs()
+    print(f"smog_tail gamma sweep, 2^20 values: max abs error "
+          f"{err.max().item():.3e} (d = 0: {err[0].max().item():.3e}, "
+          f"d = 1: {err[1].max().item():.3e})")
+    assert err.max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("name", ["smog_tail", "fire_color_grade", "fire_paste"])

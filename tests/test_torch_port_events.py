@@ -1,7 +1,9 @@
 """The port's wildfire and smog events vs the JAX package's, f32 on the CPU.
 
 - the plain twins of ``smog_tail``, ``fire_color_grade`` and ``fire_paste``
-  vs the JAX Pallas kernels (interpret mode) at (2, 32, 128);
+  vs the JAX Pallas kernels (interpret mode) at (2, 32, 128), and the first
+  two on the branch-point and floor-step values that the card tests
+  (tests/test_torch_port_cuda.py) hold the kernels to;
 - the ops the events use (normalize, sRGB<->linear, sky mask, blur, box
   dilation);
 - ``add_smog`` and ``add_fire`` vs JAX's (``use_pallas=True``) on the same
@@ -46,7 +48,14 @@ from climategan_torch.models.generator import GenConfig
 from climategan_torch.ops import image
 from climategan_torch.ops.blur import box_dilate, gaussian_blur
 from climategan_torch.utils.convert import state_dict_from_jax
-from tests.torch_port_common import nchw, tiny_pair, to_nhwc
+from tests.torch_port_common import (
+    GRADE_MEANS,
+    grade_edge_planes,
+    nchw,
+    smog_edge_planes,
+    tiny_pair,
+    to_nhwc,
+)
 
 SMOG = dict(airlight=0.76, beta=2.0, yellow=(224.0, 192.0, 29.0), alpha=20.0)
 G_VALUE = 123.0
@@ -92,6 +101,32 @@ def test_fire_color_grade_plain_matches_jax_kernel():
     got = to_nhwc(fire_color_grade_plain(nchw(p["x255"]), torch.tensor(mean),
                                          1.5, 0.73))
     _floor_bar("fire_color_grade", got, want)
+
+
+def test_smog_tail_plain_matches_jax_kernel_at_branch_points():
+    """The card tests' edge values (tests/test_torch_port_cuda.py): sRGB at
+    and beside 0.04045, linear values at and beside 0.0031308 and below
+    1e-12, d in {0, 1}."""
+    x, d = smog_edge_planes()
+    want = np.asarray(jax_events.smog_tail(
+        x.transpose(0, 2, 3, 1), d.transpose(0, 2, 3, 1), SMOG["airlight"],
+        SMOG["beta"], SMOG["yellow"], SMOG["alpha"]))
+    got = to_nhwc(smog_tail_plain(torch.from_numpy(x), torch.from_numpy(d),
+                                  **SMOG))
+    print(f"smog_tail edges: max abs error {np.abs(got - want).max():.3g}")
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mean", GRADE_MEANS)
+def test_fire_color_grade_plain_matches_jax_kernel_at_floor_steps(mean):
+    """The card tests' edge values: 1.5 x - 0.5 mean on an integer for half
+    of x, and both clamps met exactly."""
+    x = grade_edge_planes()
+    want = np.asarray(jax_events.fire_color_grade(
+        x.transpose(0, 2, 3, 1), jnp.float32(mean), 1.5, 0.73))
+    got = to_nhwc(fire_color_grade_plain(torch.from_numpy(x),
+                                         torch.tensor(mean), 1.5, 0.73))
+    _floor_bar(f"fire_color_grade edges, mean {mean}", got, want)
 
 
 def test_fire_paste_plain_matches_jax_kernel():

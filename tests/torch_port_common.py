@@ -4,17 +4,16 @@ JAX variables are made by filling ``jax.eval_shape(G.init, ...)`` with numpy
 draws from a seed (an eager ``G.init`` of the tiny model takes about a
 minute on one CPU core); the port gets the same weights through
 ``climategan_torch.utils.convert.state_dict_from_jax``.
+
+JAX and the JAX package are imported inside the functions that use them,
+so the card-only tests (tests/test_torch_port_cuda.py) import the event
+kernels' edge values from here on a machine without JAX.
 """
 from __future__ import annotations
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import torch
 
-from climategan_tpu.models.generator import GenConfig as JaxGenConfig
-from climategan_tpu.models.generator import create_generator
-from climategan_tpu.utils.testing import tiny_opts
 from climategan_torch.models.generator import GenConfig, OmniGenerator
 from climategan_torch.utils.convert import state_dict_from_jax
 from climategan_torch.utils.opts import load_opts as torch_load_opts
@@ -24,6 +23,11 @@ def jax_variables(opts, image_size: int, seed: int = 0):
     """Variables of the JAX generator, filled from numpy draws: kernels
     normal with std 1/sqrt(fan_in), small biases, batch-norm statistics near
     identity (variances positive), unit spectral u/v."""
+    import jax
+    import jax.numpy as jnp
+
+    from climategan_tpu.models.generator import create_generator
+
     G = create_generator(opts)
     x = jax.ShapeDtypeStruct((1, image_size, image_size, 3), jnp.float32)
     shapes = jax.eval_shape(G.init, jax.random.PRNGKey(0), x)
@@ -53,6 +57,8 @@ def jax_variables(opts, image_size: int, seed: int = 0):
 def tiny_pair(image_size: int = 64, seed: int = 0):
     """(JAX opts, port opts, JAX G, JAX variables, port G with the same
     weights, in f32 eval mode on the CPU)."""
+    from climategan_tpu.utils.testing import tiny_opts
+
     jopts = tiny_opts(image_size)
     topts = torch_load_opts(default=jopts.to_dict())
     G, variables = jax_variables(jopts, image_size, seed)
@@ -62,7 +68,9 @@ def tiny_pair(image_size: int = 64, seed: int = 0):
     return jopts, topts, G, variables, tG.eval()
 
 
-def jax_cfg(opts) -> JaxGenConfig:
+def jax_cfg(opts):
+    from climategan_tpu.models.generator import GenConfig as JaxGenConfig
+
     return JaxGenConfig.from_opts(opts)
 
 
@@ -72,3 +80,50 @@ def nchw(a) -> torch.Tensor:
 
 def to_nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+# ---- edge values of the event kernels (CPU twins and card tests) -------
+
+GRADE_MEANS = [0.0, 97.0, 100.0, 255.0]
+
+
+def _around(v, k):
+    """float32 v and its k nearest float32 neighbours on each side."""
+    v = lo = hi = np.float32(v)
+    out = [v]
+    for _ in range(k):
+        lo, hi = np.nextafter(lo, np.float32(-1)), np.nextafter(hi, np.float32(2))
+        out += [lo, hi]
+    return out
+
+
+def smog_edge_planes():
+    """x01 (2, 3, 4, 32) and d (2, 1, 4, 32), float32 numpy.
+
+    Each channel holds, rolled by its index: sRGB values at and beside the
+    decode's branch point 0.04045; values whose decoded linear value
+    (x * float32(1/12.92), as PyTorch divides by a scalar on the card)
+    lands at and beside the encode's branch point 0.0031308; zero, values
+    at and below 1e-12 and 1.0; then a ramp over [0, 1]. d is 0 on image 0
+    (t = 1, so the linear value reaches the encode unchanged) and 1 on
+    image 1."""
+    f32 = np.float32
+    x_thr = f32(0.0031308) * f32(12.92)
+    vals = (_around(0.04045, 8) + _around(x_thr, 8)
+            + [f32(v) for v in (0.0, 1e-13, 1e-12, 2e-12, 1e-11, 1.0)])
+    plane = np.concatenate([np.array(vals, f32),
+                            np.linspace(0, 1, 128 - len(vals), dtype=f32)])
+    x = np.stack([np.roll(plane, c) for c in range(3)]).reshape(3, 4, 32)
+    d = np.stack([np.zeros((1, 4, 32), f32), np.ones((1, 4, 32), f32)])
+    return np.stack([x, x]), d
+
+
+def grade_edge_planes():
+    """x255 (1, 3, 8, 32), float32 numpy: the integers 0..255 in each
+    channel, rolled by the channel's index. With the means of GRADE_MEANS,
+    1.5 x - 0.5 mean lands exactly on an integer for half of them (odd x
+    for an odd mean, even x for an even one), and the clamps at 0 and 255
+    are reached and met exactly (mean 255: x = 85 gives 0; mean 0: x = 170
+    gives 255)."""
+    ints = np.arange(256, dtype=np.float32)
+    return np.stack([np.roll(ints, 7 * c) for c in range(3)]).reshape(1, 3, 8, 32)
