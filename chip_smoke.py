@@ -41,12 +41,33 @@ Phases, any failure exits non-zero:
      not counted) beside its back-to-back call time, the plain version, one
      PyTorch library call computing the same function (where there is one;
      weights laid out before the timing) and the bound; spade_cond per call
-     with its TFLOP/s and share of the bound.
+     with its TFLOP/s and share of the bound;
+  6. serving, at full width (default opts, --half, the random seed-0 model
+     saved as a reference-layout {"G": state_dict} .pth under
+     checkpoints/latest_ckpt.pth of a temp run dir with opts.yaml): the
+     state dict that load_inference_state returns equals the saved one on
+     every key; `python -m climategan_torch.apply_events` main() with -r on
+     7 synthetic PNG photos (720x1280 and 1280x960, one 640^2 bucket) at
+     -b 2, launch counts set to 0 before it and read after: batches x {18,
+     1, 1, 1, 1}; the native prep library built; every output PNG uint8
+     640x640x3 and bit-equal to infer on the same prepped, padded batches
+     with one generator seeded as the CLI's; served images/s through
+     render on a steady stream (the photos repeated to 64, 32 batches) with
+     and without the overlap and without the PNG encodes, over the whole
+     call and over the loop after the prep, the stage report, and the
+     forward alone over as many batches in turns with them (information
+     only); eval_masker's per-image path on
+     2 photos at 640^2 equal to the metrics of a direct G.infer_masker;
+     climategan_torch.bench
+     with --events all at batch 2, 8 and 32, one JSON line each
+     (gflops_per_image > 0, mfu <= 1.05).
 The last three lines are the card's name and power limit, the kernels JSON
 line, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -62,6 +83,7 @@ PEAK_BYTES = 3.35e12
 BATCH = 2
 SIZE = 640
 SMALL = 256
+STREAM = 64  # photos of phase 6's steady-stream serving rates
 G_VALUE = 120.0  # the wildfire filter's green value where it is fixed
 MAIN_PATH_LAUNCHES = {"spade_cond": 18, "masked_blend": 1, "smog_tail": 1,
                       "fire_color_grade": 1, "fire_paste": 1}
@@ -164,6 +186,178 @@ def lsb_agreement(a, b):
     """(share of values within 1 LSB, max LSB) of two uint8 tensors."""
     lsb = (a.int() - b.int()).abs()
     return (lsb <= 1).float().mean().item(), lsb.max().item()
+
+
+def serving_phase(torch, opts, dev) -> None:
+    """Phase 6: the serving surface at full width (see the module
+    docstring). cv2 is installed on the card's machine, so the CLI's main()
+    runs on PNG files; its absence is a failure."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import yaml
+
+    from climategan_torch import apply_events as cli
+    from climategan_torch import bench
+    from climategan_torch import eval_masker
+    from climategan_torch import kernels
+    from climategan_torch.eval_metrics import (
+        edges_coherence_std_min,
+        masker_classification_metrics,
+    )
+    from climategan_torch.models.generator import create_generator
+    from climategan_torch.utils import native
+    from climategan_torch.utils.serving import load_inference_state
+    from climategan_torch.utils.timer import stores_report
+
+    log("serving phase: main() on PNG files in a temp dir (cv2 is present)")
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    run = root / "run"
+    (run / "checkpoints").mkdir(parents=True)
+    with (run / "opts.yaml").open("w") as f:
+        yaml.safe_dump(json.loads(json.dumps(opts)), f)
+    saved = create_generator(opts, seed=0).state_dict()
+    torch.save({"G": saved}, run / "checkpoints" / "latest_ckpt.pth")
+    _, loaded = load_inference_state(run)
+    if sorted(loaded) != sorted(saved) or not all(
+            torch.equal(loaded[k], saved[k]) for k in saved):
+        raise AssertionError("load_inference_state did not return the saved "
+                             "state dict")
+    log(f"-r {run}: the loaded state dict equals the saved one on all "
+        f"{len(saved)} keys")
+
+    rng = np.random.default_rng(6)
+    shapes = [(720, 1280, 3)] * 4 + [(1280, 960, 3)] * 3
+    (root / "imgs").mkdir()
+    for i, shape in enumerate(shapes):
+        cv2.imwrite(str(root / "imgs" / f"photo_{i}.png"),
+                    rng.integers(0, 256, shape, np.uint8))
+    flags = ["-i", str(root / "imgs"), "-r", str(run), "-b", str(BATCH),
+             "--half"]
+    if not native.available():
+        raise AssertionError("the native host-prep library did not build")
+    kernels.reset_launches()
+    if cli.main([*flags, "-o", str(root / "out"), "--time"]) != 0:
+        raise AssertionError("apply_events main() failed")
+    torch.cuda.synchronize()
+    served = dict(kernels.launches)
+    batches = -(-len(shapes) // BATCH)
+    want = {k: batches * n for k, n in MAIN_PATH_LAUNCHES.items()}
+    log(f"served {len(shapes)} photos in {batches} batches of {BATCH} (the "
+        f"last padded): launches {served}")
+    if served != want:
+        raise AssertionError(f"expected serving launches {want}, got {served}")
+
+    # the same prepped, padded batches through infer directly, with one
+    # generator seeded as the CLI's
+    args = cli.parse_args(flags)
+    infer = cli.load_model(args)
+    paths = cli.find_images(root / "imgs")
+    photos = [(p.stem, cv2.imread(str(p), cv2.IMREAD_COLOR)[..., ::-1])
+              for p in paths]
+    xs = [cli.prep(img, args, True) for _, img in photos]
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    n_png = 0
+    for i in range(0, len(xs), BATCH):
+        batch = cli.pad_batch(np.stack(xs[i:i + BATCH]), BATCH)
+        out = infer(torch.from_numpy(batch), generator=gen)
+        for j, (name, _) in enumerate(photos[i:i + BATCH]):
+            for event in cli.WRITTEN_EVENTS:
+                png = cv2.imread(str(root / "out" / f"{name}_{event}.png"))
+                direct = out[event][j].cpu().numpy()
+                if png is None or direct.shape != (SIZE, SIZE, 3) or \
+                        direct.dtype != np.uint8 or \
+                        not np.array_equal(png[..., ::-1], direct):
+                    raise AssertionError(f"{name}_{event}.png differs from "
+                                         f"infer on the same batch")
+                n_png += 1
+    log(f"all {n_png} served PNGs are uint8 {SIZE}x{SIZE}x3 and bit-equal to "
+        f"infer on the same prepped, padded batches")
+
+    # information: served images/s on a steady stream, the decoded photos
+    # repeated to STREAM photos (STREAM / BATCH batches), in turns: with
+    # and without the overlap, PNG writes included, then with a writer that
+    # keeps nothing (the loop without the encodes); the loop's rate leaves
+    # out the prep of every photo, which render runs before its first batch
+    def write_png(name, event, img):
+        cv2.imwrite(str(root / "out" / f"{name}_{event}.png"), img[..., ::-1])
+
+    stream = [(f"{name}_{k}", img) for k in range(-(-STREAM // len(photos)))
+              for name, img in photos][:STREAM]
+    modes = {"overlap": ([], write_png), "no_overlap": (["--no_overlap"], write_png),
+             "overlap, no PNG": ([], lambda name, event, img: None)}
+    x0 = torch.from_numpy(cli.pad_batch(np.stack(xs[:BATCH]), BATCH)).to(dev)
+    rates, fwd = {}, []
+    for _ in range(2):
+        for mode, (extra, write) in modes.items():
+            stores = cli.new_stores()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):  # per-batch lines
+                cli.render(stream, cli.parse_args(flags + extra), write,
+                           infer=infer, stores=stores)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prep_s = sum(stores["data pre-processing"])
+            rates.setdefault(mode, []).append(
+                (len(stream) / wall, len(stream) / (wall - prep_s)))
+            log(f"render, {mode}, {len(stream)} photos: {wall:.3f} s\n"
+                f"{stores_report(stores)}")
+        # the forward alone over as many batches, on one batch on the card
+        t0 = time.perf_counter()
+        for _ in range(len(stream) // BATCH):
+            infer(x0, generator=gen)
+        torch.cuda.synchronize()
+        fwd.append(len(stream) / (time.perf_counter() - t0))
+    log(f"served images/s at batch {BATCH}, {len(stream)} photos (two runs "
+        f"each, whole call / loop after the prep): " + "; ".join(
+            f"{m} " + ", ".join(f"{a:.2f} / {b:.2f}" for a, b in v)
+            for m, v in rates.items())
+        + f"; the forward alone, {len(stream) // BATCH} batches enqueued back "
+        f"to back: " + ", ".join(f"{r:.2f}" for r in fwd))
+
+    # eval_masker's per-image path on two in-memory photos and labels
+    eargs = eval_masker.build_parser().parse_args(
+        ["--images_dir", ".", "--labels_dir", ".", "-r", str(run)])
+    G = eval_masker.load_masker(eargs)
+    # cannot-flood, a may-flood band and a 64^2 must-flood square: few
+    # must edges keep the edge coherence's pairwise distances small
+    label = np.zeros((SIZE, SIZE), np.uint8)
+    label[SIZE // 2:] = 2
+    label[-96:-32, SIZE // 2 - 32: SIZE // 2 + 32] = 1
+    per_image, direct = [], []
+    for name, img in photos[:2]:
+        img = img[:SIZE, :SIZE]
+        metrics, _, _, _, _ = eval_masker.score_image(G, img, label, SIZE, 0.5)
+        per_image.append({**metrics, "image": name})
+        x = torch.from_numpy(cli.uint8_to_m11(np.ascontiguousarray(img)))
+        pred = G.infer_masker(x[None].permute(0, 3, 1, 2).contiguous().to(dev))[2]
+        pred = pred[0, 0].float().cpu().numpy()
+        want_m, _ = masker_classification_metrics(pred, label)
+        want_m["edge_coherence"] = edges_coherence_std_min(pred, label, bin_th=0.5)[0]
+        direct.append({**want_m, "image": name})
+    report = {"summary": eval_masker.summarize(per_image), "per_image": per_image}
+    if report["per_image"] != direct or \
+            report["summary"] != eval_masker.summarize(direct):
+        raise AssertionError("eval_masker's report differs from the metrics "
+                             "of a direct G.infer_masker")
+    log("eval_masker on 2 photos at 640^2: "
+        + json.dumps({k: report["summary"][k] for k in
+                      eval_masker.KEY_METRICS + ["accuracy"]})
+        + "; equal to the metrics of a direct G.infer_masker")
+    del G, infer
+    tmp.cleanup()
+
+    for b in (2, 8, 32):
+        result = bench.run_bench(bench.parse_args(["--events", "all",
+                                                   "--batch", str(b)]))
+        log(json.dumps(result))
+        if not result["gflops_per_image"] > 0 or not result["mfu"] <= 1.05:
+            raise AssertionError(f"bench at batch {b}: {result}")
+    log(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -594,6 +788,8 @@ def run(torch) -> int:
         log(f"{r['name']}: kernel {r['ms']:.4f} ms (back to back with its "
             f"host time {r['call_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
             f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    serving_phase(torch, opts, dev)
 
     log(smi())
     log(json.dumps({"kernels": rows}))

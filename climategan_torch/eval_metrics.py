@@ -1,0 +1,108 @@
+"""Masker evaluation metrics (numpy, host-side): the port's own copy of the
+part of the JAX package's ``eval_metrics.py`` that ``eval_masker`` uses.
+
+Re-design of reference climategan/eval_metrics.py: masker confusion
+metrics over {cannot=0, must=1, may=2} labels (:133-260) and
+edges_coherence_std_min (:484-543) without the sklearn/skimage deps
+(Sobel + pairwise distances in numpy). Pixel accuracy, mIOU and the
+error-map helpers wait for a caller (training, FID).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+
+
+def masker_classification_metrics(
+    pred: np.ndarray,
+    label: np.ndarray,
+    labels_dict: Dict[str, int] = {"cannot": 0, "must": 1, "may": 2},
+) -> Tuple[Dict[str, float], Dict[str, np.ndarray]]:
+    """Confusion metrics over {cannot, must, may} ground-truth labels
+    (reference eval_metrics.py:133-260)."""
+    pred = np.asarray(pred, dtype=float)
+    label = np.asarray(label)
+    must = (label == labels_dict["must"]).astype(float)
+    cannot = (label == labels_dict["cannot"]).astype(float)
+    may = (label == labels_dict["may"]).astype(float)
+    n = float(np.prod(label.shape))
+
+    tp_map = pred * must
+    tn_map = (1.0 - pred) * cannot
+    fp_map = pred * cannot
+    fn_map = (1.0 - pred) * must
+    may_pos_map = pred * may
+    may_neg_map = (1.0 - pred) * may
+
+    tpr = tp_map.sum() / max(must.sum(), 1e-12)
+    tnr = tn_map.sum() / max(cannot.sum(), 1e-12)
+    fpr = fp_map.sum() / max(cannot.sum(), 1e-12)
+    fnr = fn_map.sum() / max(must.sum(), 1e-12)
+    mnr = may_neg_map.sum() / max(may.sum(), 1e-12)
+    mpr = may_pos_map.sum() / max(may.sum(), 1e-12)
+    tpt, tnt = tp_map.sum() / n, tn_map.sum() / n
+    fpt, fnt = fp_map.sum() / n, fn_map.sum() / n
+
+    acc = tpt + tnt
+    error = fpt + fnt
+    precision = tp_map.sum() / max(tp_map.sum() + fp_map.sum(), 1e-12)
+    beta2 = 0.25  # F0.5
+    f05 = ((1 + beta2) * precision * tpr
+           / max(beta2 * precision + tpr, 1e-12))
+    acc_must_may = (tp_map.sum() + may_neg_map.sum() + may_pos_map.sum()) / max(
+        must.sum() + may.sum(), 1e-12
+    )
+
+    metrics = {
+        "tpr": tpr, "tpt": tpt, "tnr": tnr, "tnt": tnt,
+        "fpr": fpr, "fpt": fpt, "fnr": fnr, "fnt": fnt,
+        "mnr": mnr, "mpr": mpr, "accuracy": acc, "error": error,
+        "precision": precision, "f05": f05,
+        "accuracy_must_may": acc_must_may,
+    }
+    maps = {
+        "tp": tp_map, "tn": tn_map, "fp": fp_map, "fn": fn_map,
+        "may_pos": may_pos_map, "may_neg": may_neg_map,
+    }
+    return metrics, maps
+
+
+def _sobel_mag(x: np.ndarray) -> np.ndarray:
+    """skimage.filters.sobel equivalent: gradient magnitude, normalized."""
+    kx = np.array([[1, 0, -1], [2, 0, -2], [1, 0, -1]], float) / 4.0
+    ky = kx.T
+    pad = np.pad(x, 1, mode="edge")
+    h, w = x.shape
+    win = np.lib.stride_tricks.sliding_window_view(pad, (3, 3))
+    gx = (win * kx).sum(axis=(-2, -1))
+    gy = (win * ky).sum(axis=(-2, -1))
+    return np.sqrt(gx * gx + gy * gy)
+
+
+def edges_coherence_std_min(pred, label, label_must: int = 1,
+                            bin_th: float = 0.5):
+    """Std of min distance between prediction edges and must-flood edges
+    (reference eval_metrics.py:484-543)."""
+    label = np.where(np.asarray(label) == label_must, 1.0, 0.0)
+    pred = (np.asarray(pred) > bin_th).astype(float)
+
+    pred_e = _sobel_mag(pred)
+    label_e = _sobel_mag(label)
+
+    pred_coord = np.argwhere(pred_e > 0)
+    label_coord = np.argwhere(label_e > 0)
+    if pred_coord.shape[0] == 0 or label_coord.shape[0] == 0:
+        return 1.0, pred_e, label_e
+
+    # pairwise distances, chunked to bound memory
+    mins = np.empty(pred_coord.shape[0])
+    for i in range(0, pred_coord.shape[0], 4096):
+        chunk = pred_coord[i:i + 4096].astype(float)
+        d = np.sqrt(
+            ((chunk[:, None, :] - label_coord[None, :, :].astype(float)) ** 2
+             ).sum(-1)
+        )
+        mins[i:i + 4096] = d.min(axis=1)
+    edge_coherence = float(np.std(mins / pred_e.shape[0]))
+    return edge_coherence, pred_e, label_e

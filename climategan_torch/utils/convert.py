@@ -1,4 +1,4 @@
-"""JAX variables -> the port's state dict (the reference torch key layout).
+"""Weights into the port's state dict (the reference torch key layout).
 
 ``state_dict_from_jax(variables, cfg)`` takes the JAX package's
 ``{"params", "batch_stats", "spectral"}`` tree (arrays as numpy) and returns
@@ -8,15 +8,21 @@ with spectral ``u``/``v`` becomes ``<key>.module.weight_bar`` /
 wrapper's ``scale``/``bias``/``mean``/``var`` become ``weight``/``bias``/
 ``running_mean``/``running_var`` (plus a zero ``num_batches_tracked``).
 It is the inverse of the JAX package's reference -> JAX converter.
+
+``load_torch_state_dict(path)`` reads a released reference checkpoint and
+``state_dict_from_reference(sd, cfg)`` turns its G state dict into exactly
+the keys of ``OmniGenerator(cfg).state_dict()``, with the JAX package's
+``convert_generator`` semantics for missing and partial module groups.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+import warnings
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from climategan_torch.models.generator import GenConfig
+from climategan_torch.models.generator import GenConfig, OmniGenerator
 
 Path = Tuple[str, ...]
 Entry = Tuple[str, str, Path]  # (kind, torch key, JAX path)
@@ -166,3 +172,97 @@ def state_dict_from_jax(variables: Dict, cfg: GenConfig) -> Dict[str, torch.Tens
         if "bias" in p:
             sd[f"{prefix}.bias"] = _tensor(p["bias"])
     return sd
+
+
+def load_torch_state_dict(path, allow_pickle: bool = False) -> Dict[str, Any]:
+    """Load a torch checkpoint safely: ``weights_only=True`` first (plain
+    tensor state dicts, as the released ClimateGAN checkpoints are), and
+    an unpickling load only with ``allow_pickle=True``, since that runs
+    code from the file. Unwraps ``{"G": ...}`` and ``{"state_dict": ...}``."""
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as e:
+        if not allow_pickle:
+            raise RuntimeError(
+                f"{path} is not a plain-tensor checkpoint (weights_only load "
+                f"failed: {e}). If you trust this file, retry with "
+                f"allow_pickle=True.") from e
+        warnings.warn(f"falling back to unsafe pickle load for {path}; this "
+                      f"executes code embedded in the checkpoint", stacklevel=2)
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and "G" in ckpt:
+        return ckpt["G"]
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        return ckpt["state_dict"]
+    return ckpt
+
+
+# (name, key prefix, part) of each module group, in the order of the JAX
+# package's convert_generator
+GROUPS = (("encoder", "encoder.", "masker"),
+          ("depth decoder", "decoders.d.", "masker"),
+          ("seg decoder", "decoders.s.", "masker"),
+          ("mask decoder", "decoders.m.", "masker"),
+          ("painter", "painter.", "painter"))
+
+
+def _zero_state_dict(cfg: GenConfig) -> Dict[str, torch.Tensor]:
+    """Every key of ``OmniGenerator(cfg).state_dict()`` as zeros (the model
+    is built on the meta device, so no weights are allocated)."""
+    with torch.device("meta"):
+        template = OmniGenerator(cfg).state_dict()
+    return {k: torch.zeros(v.shape, dtype=v.dtype) for k, v in template.items()}
+
+
+def state_dict_from_reference(
+    sd: Mapping[str, Any], cfg: GenConfig,
+    parts: Tuple[str, ...] = ("masker", "painter"), lenient: bool = False,
+    into: Optional[Mapping[str, torch.Tensor]] = None,
+) -> Dict[str, torch.Tensor]:
+    """A reference G state dict -> exactly the keys of
+    ``OmniGenerator(cfg).state_dict()``, as the JAX package's
+    ``convert_generator`` reads it: a leading ``G.`` is stripped and unknown
+    keys are ignored. Groups outside ``parts`` (``"masker"``: encoder and
+    the d/s/m decoders; ``"painter"``) take their values from ``into``.
+    A group with no key in ``sd`` raises, or with ``lenient`` warns and
+    keeps ``into``'s values; a group only partly present always raises.
+    Without ``into`` the kept values are zeros, as the JAX package's
+    ``init_generator_variables`` leaves them (zero spectral u/v: such a
+    module cannot run). ``num_batches_tracked`` is optional, as the JAX
+    converter never reads it. Values take the template's dtype."""
+    if any(k.startswith("G.") for k in sd):
+        sd = {k[2:] if k.startswith("G.") else k: v for k, v in sd.items()}
+    base = _zero_state_dict(cfg) if into is None else into
+    out = {}
+    for group, prefix, part in GROUPS:
+        keys = [k for k in base if k.startswith(prefix)]
+        if not keys:
+            continue
+        load = part in parts
+        if load and not any(k.startswith(prefix) for k in sd):
+            if not lenient:
+                raise KeyError(f"state dict has no {prefix!r}* keys for the "
+                               f"{group} (pass lenient=True to keep init values)")
+            warnings.warn(f"checkpoint has no {prefix!r}* keys: keeping init "
+                          f"values for the {group} (reference strict=False "
+                          f"inference load)", stacklevel=2)
+            load = False
+        if not load:
+            out.update((k, base[k]) for k in keys)
+            continue
+        missing = [k for k in keys if k not in sd
+                   and not k.endswith(".num_batches_tracked")]
+        if missing:
+            raise KeyError(f"the {group} is only partly in the state dict: "
+                           f"{len(missing)} of {len(keys)} keys missing, e.g. "
+                           f"{missing[:3]}")
+        for k in keys:
+            if k not in sd:
+                out[k] = base[k]
+                continue
+            v = torch.as_tensor(sd[k])
+            if tuple(v.shape) != tuple(base[k].shape):
+                raise ValueError(f"{k}: shape {tuple(v.shape)} in the state "
+                                 f"dict, {tuple(base[k].shape)} in the model")
+            out[k] = v.detach().to(device="cpu", dtype=base[k].dtype).clone()
+    return out

@@ -278,3 +278,84 @@ def test_event_kernel_rejects_what_it_does_not_take(name):
     with pytest.raises(ValueError):
         kernel(x.cpu(), *rest, **kw)  # CUDA beside CPU
     assert launches == dict.fromkeys(launches, 0)
+
+
+# ---- serving: the CLI, the native library, render's launches ----------
+
+def _serve_args(*flags):
+    from climategan_torch.apply_events import parse_args
+
+    return parse_args(["-i", ".", *flags])
+
+
+def _render(images, args, infer=None):
+    """render() with an in-memory writer: (batches, {(name, event): uint8})."""
+    from climategan_torch.apply_events import render
+
+    outs = {}
+
+    def write(name, event, img):
+        outs[(name, event)] = img.copy()
+
+    return render(images, args, write, infer=infer), outs
+
+
+def test_cli_f32_on_the_card_matches_the_cpu():
+    """The full-width model, random weights from seed 0, at 256^2 in f32
+    (--keep_ratio_128 keeps 256^2 photos at that size, --no_cloudy keeps
+    the flood off the device's own random draws): flood and smog within 1
+    LSB on >= 99.9% of values; the wildfire's green value is drawn from
+    each device's generator, so it is held to its shape."""
+    _device()
+    rs = np.random.RandomState(0)
+    images = [(f"im_{i}", rs.randint(0, 256, (256, 256, 3), np.uint8))
+              for i in range(2)]
+    got = {}
+    for where in ("cuda", "cpu"):
+        n, got[where] = _render(images, _serve_args(
+            "--keep_ratio_128", "-b", "2", "--no_cloudy", "--device", where))
+        assert n == 1 and len(got[where]) == 6
+    for (name, event), want in got["cpu"].items():
+        out = got["cuda"][(name, event)]
+        assert out.shape == want.shape == (256, 256, 3) and out.dtype == np.uint8
+        if event != "wildfire":
+            lsb = np.abs(out.astype(int) - want.astype(int))
+            within = (lsb <= 1).mean()
+            print(f"{name} {event}: within 1 LSB on {100 * within:.4f}%")
+            assert within >= 0.999, (name, event, within)
+
+
+def test_native_builds_from_a_clean_build_dir(tmp_path, monkeypatch):
+    from climategan_torch.utils import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_TRIED", False)
+    assert native.available()
+    assert [p.name for p in (tmp_path / "_build").iterdir()] == [native.target().name]
+    img = np.arange(256, dtype=np.uint8).reshape(8, 32, 1).repeat(3, -1)
+    want = img.astype(np.float32) / np.float32(127.5) - np.float32(1)
+    assert np.array_equal(native.pack_uint8_to_m11(img), want)
+    assert native.prepare_inference(img, 8).shape == (8, 8, 3)
+
+
+def test_render_launches_each_kernel_per_batch():
+    """3 photos at -b 2 in bf16: two batches (the second padded), each the
+    main path's 18 spade_cond and one launch of each other kernel; 9
+    outputs."""
+    from climategan_torch.apply_events import load_model
+
+    _device()
+    rs = np.random.RandomState(1)
+    images = [(f"im_{i}", rs.randint(0, 256, (480, 640, 3), np.uint8))
+              for i in range(3)]
+    args = _serve_args("-b", "2", "--half")
+    infer = load_model(args)
+    reset_launches()
+    n, outs = _render(images, args, infer)
+    assert n == 2
+    assert launches == {"spade_cond": 36, "masked_blend": 2, "smog_tail": 2,
+                        "fire_color_grade": 2, "fire_paste": 2}
+    assert len(outs) == 9
+    assert all(v.shape == (640, 640, 3) and v.dtype == np.uint8
+               for v in outs.values())

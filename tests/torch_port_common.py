@@ -68,6 +68,28 @@ def tiny_pair(image_size: int = 64, seed: int = 0):
     return jopts, topts, G, variables, tG.eval()
 
 
+def zeros_like_tree(variables):
+    """The variable tree with every leaf zero: what the JAX package's
+    ``serving.init_generator_variables`` returns for the same generator
+    (there through a ``jax.eval_shape`` of about 4 s a call on one CPU
+    core), so tests of its loader patch it in."""
+    import jax
+
+    return jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype), variables)
+
+
+def write_run_dir(d, jopts, ckpt):
+    """A reference-style run dir: ``opts.yaml`` of the JAX opts and
+    ``ckpt`` saved as ``checkpoints/latest_ckpt.pth``."""
+    import yaml
+
+    (d / "checkpoints").mkdir(parents=True)
+    with (d / "opts.yaml").open("w") as f:
+        yaml.safe_dump(jopts.to_dict(), f)
+    torch.save(ckpt, d / "checkpoints" / "latest_ckpt.pth")
+    return d
+
+
 def jax_cfg(opts):
     from climategan_tpu.models.generator import GenConfig as JaxGenConfig
 
