@@ -60,7 +60,33 @@ Phases, any failure exits non-zero:
      2 photos at 640^2 equal to the metrics of a direct G.infer_masker;
      climategan_torch.bench
      with --events all at batch 2, 8 and 32, one JSON line each
-     (gflops_per_image > 0, mfu <= 1.05).
+     (gflops_per_image > 0, mfu <= 1.05);
+  7. training (grad enabled), the default training step (g_step then
+     d_step): (1) at tiny_opts(32)'s sizes in f32 (TF32 off), the card's
+     g_step and then d_step against the CPU's plain path from the same
+     state, batch and draws (each step from one state on both devices):
+     losses within 1e-4 relative; each model held leaf by leaf by
+     climategan_torch.utils.step_check.hold_state (the optimizer's first
+     moments, every parameter value whose gradient is not rounding noise
+     within 1e-6, >= 99.9% of values within 1e-6, the noise values counted;
+     batch-norm statistics and spectral u/v within 1e-5; the model the step
+     does not update unchanged); (2) masked_blend's autograd (the kernel forward, the
+     plain backward) against masked_blend_plain under autograd at
+     (2, 640, 640, 3), f32 within 1e-6 and bf16 within one bf16 ulp of the
+     scale; (3) full width (default opts, 640^2, per-domain batch 2, the
+     bf16 policy, random weights from seed 0): one counted step (launch
+     counts set to 0 before it and read after: masked_blend 2, one paste
+     per step, spade_cond 0), finite losses, every G and D parameter
+     changed (any that did not is named) but the ADVENT Ds' output biases,
+     whose gradient is exactly zero (their WGAN terms on r and s cancel),
+     every spectral u/v (but a 1-channel conv's u, which is +-1) and
+     batch-norm running statistic advanced, then 1 more warm step and 6 timed (p50
+     step ms, images/s counting 3 x batch, peak memory); G.eval() and its
+     f32 masker + cloudy flood forward bit-equal to that of a fresh G
+     loaded from the trained state_dict() (information: g_step and d_step
+     timed apart, one step under torch.profiler, its device busy share and
+     top ops); (4) `python -m
+     climategan_torch.bench_train`, its JSON line (value > 0).
 The last three lines are the card's name and power limit, the kernels JSON
 line, and {"ok": true, "device": {...}}.
 """
@@ -169,6 +195,26 @@ def profile_table(torch, fn, rows: int = 15) -> str:
         torch.cuda.synchronize()
     return prof.key_averages().table(sort_by="self_device_time_total",
                                      row_limit=rows, max_name_column_width=60)
+
+
+def device_profile(torch, fn, rows: int = 20):
+    """torch.profiler over one call of ``fn``: (the ops with the most
+    device time, the device's busy ms summed over its kernels and copies,
+    their count, the call's wall ms under the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in device) / 1e3
+    table = prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=rows, max_name_column_width=60)
+    return table, busy, len(device), wall * 1e3
 
 
 def device_kernels(torch, fn) -> int:
@@ -360,6 +406,219 @@ def serving_phase(torch, opts, dev) -> None:
     log(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# parameters whose gradient is exactly zero in the default step: the ADVENT
+# Ds' output biases, as the D step's WGAN losses on r (label 1) and s
+# (label 0) give them -1 and +1
+ZERO_GRADIENT = ("D.m_advent.conv4.module.bias", "D.s_advent.conv4.module.bias")
+
+
+def training_phase(torch, dev) -> dict:
+    """Phase 7: the training step (see the module docstring). Returns the
+    launches of each kernel in one full-width step."""
+    import copy
+    import statistics
+
+    from climategan_torch import bench_train, kernels
+    from climategan_torch.kernels.masked_blend import (
+        MaskedBlend,
+        masked_blend_plain,
+    )
+    from climategan_torch.models.generator import OmniGenerator
+    from climategan_torch.train_step import StepBuilder
+    from climategan_torch.utils.opts import load_opts
+    from climategan_torch.utils.step_check import (
+        STATS,
+        TINY_OVERRIDES,
+        TINY_SIZE,
+        first_moments,
+        hold_state,
+    )
+
+    t_phase = time.perf_counter()
+    # ---- 7.1 the card's step against the CPU's, f32 -------------------
+    opts = load_opts(commandline_opts=TINY_OVERRIDES)
+    builder = StepBuilder(opts)
+    cpu = builder.init_state(seed=0, device="cpu")
+    card = builder.state_for(copy.deepcopy(cpu.G).to(dev),
+                             copy.deepcopy(cpu.D).to(dev))
+    batch_cpu = bench_train.synthetic_batch(2, TINY_SIZE, 32, "cpu")
+    batch_dev = {d: {k: v.to(dev) for k, v in b.items()}
+                 for d, b in batch_cpu.items()}
+    draws = ((0.05, False), (0.1, False))
+    for i, name in enumerate(("g_step", "d_step")):
+        if name == "d_step":  # from the CPU's post-g_step state on both
+            card.G.load_state_dict(cpu.G.state_dict())
+            card.D.load_state_dict(cpu.D.state_dict())
+        _, m_cpu = getattr(builder, name)(cpu, batch_cpu, draws=draws[i])
+        _, m_dev = getattr(builder, name)(card, batch_dev, draws=draws[i])
+        for k, v in m_cpu.items():
+            a, b = float(m_dev[k]), float(v)
+            if abs(a - b) > 1e-4 * abs(b) + 1e-9:
+                raise AssertionError(f"{name} {k}: card {a} cpu {b}")
+        # the stepped model against its moments, the other one unchanged
+        stepped = "G" if name == "g_step" else "D"
+        for net, lr in (("G", builder.g_lr), ("D", builder.d_lr)):
+            opt = f"{net.lower()}_opt"
+            got, want = getattr(card, net), getattr(cpu, net)
+            if net != stepped:
+                hold_state(got, want.state_dict(), what=f"{name} {net}")
+                continue
+            log(f"tiny {name}, card vs CPU (f32): {len(m_cpu)} losses "
+                "within 1e-4; statistics and u/v within 1e-5; "
+                + hold_state(got, want.state_dict(), lr,
+                             first_moments(got, getattr(card, opt)),
+                             first_moments(want, getattr(cpu, opt)),
+                             what=net))
+    del cpu, card
+
+    # ---- 7.2 masked_blend's gradient on the card -----------------------
+    g = torch.Generator(device=dev).manual_seed(7)
+    for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, None)):
+        ins = [torch.rand(2, SIZE, SIZE, c, device=dev, generator=g)
+               .to(dtype) for c in (3, 3, 1)]
+        up = torch.randn(2, SIZE, SIZE, 3, device=dev, generator=g).to(dtype)
+        want_in = [t.clone().requires_grad_() for t in ins]
+        got_in = [t.clone().requires_grad_() for t in ins]
+        want = torch.autograd.grad((masked_blend_plain(*want_in).float()
+                                    * up.float()).sum(), want_in)
+        got = torch.autograd.grad((MaskedBlend.apply(*got_in).float()
+                                   * up.float()).sum(), got_in)
+        errs = []
+        for a, b in zip(got, want):
+            bar = tol if tol is not None else \
+                b.float().abs().max().item() * 2.0 ** -8
+            err = (a.float() - b.float()).abs().max().item()
+            if err > bar:
+                raise AssertionError(f"masked_blend {dtype} gradient: "
+                                     f"{err} > {bar}")
+            errs.append(err)
+        log(f"masked_blend autograd {dtype} (2, {SIZE}, {SIZE}, 3): max "
+            f"gradient errors (x, fake, m) {errs}")
+
+    # ---- 7.3 full width ------------------------------------------------
+    torch.backends.cudnn.benchmark = False
+    opts = load_opts()
+    builder = StepBuilder(opts)
+    t0 = time.perf_counter()
+    state = builder.init_state(seed=0, device=dev)
+    batch = bench_train.synthetic_batch(BATCH, SIZE, 160, dev)
+    log(f"full-width training state built in {time.perf_counter() - t0:.1f} s")
+    before = {f"{n}.{k}": v.detach().clone()
+              for n, mod in (("G", state.G), ("D", state.D))
+              for k, v in mod.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    state, metrics = builder.train_step(state, batch)
+    torch.cuda.synchronize()
+    counted = dict(kernels.launches)
+    log(f"one full-width training step: launches {counted}")
+    if counted["masked_blend"] != 2 or counted["spade_cond"] != 0 or any(
+            counted[k] for k in EVENT_KERNELS):
+        raise AssertionError("a training step launches masked_blend twice "
+                             f"(a paste per step) and nothing else: {counted}")
+    bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+    if bad:
+        raise AssertionError(f"non-finite losses: {bad}")
+    unchanged, stale = [], []
+    for n, mod in (("G", state.G), ("D", state.D)):
+        params = {k for k, _ in mod.named_parameters()}
+        for k, v in mod.state_dict().items():
+            # a 1-channel conv's u is +-1: its power iteration cannot move it
+            if k.endswith("num_batches_tracked") or (
+                    k.endswith("weight_u") and v.numel() == 1):
+                continue
+            same = torch.equal(v, before[f"{n}.{k}"])
+            if same and k in params and f"{n}.{k}" not in ZERO_GRADIENT:
+                unchanged.append(f"{n}.{k}")
+            elif same and k.rsplit(".", 1)[-1] in STATS:
+                stale.append(f"{n}.{k}")
+    n_params = sum(1 for mod in (state.G, state.D)
+                   for _ in mod.named_parameters())
+    log(f"after one step: {n_params - len(ZERO_GRADIENT) - len(unchanged)} "
+        f"of {n_params} parameter tensors changed (not counted: "
+        f"{', '.join(ZERO_GRADIENT)}, whose gradient is exactly zero); "
+        f"statistics and u/v not advanced: {len(stale)}")
+    if unchanged or stale:
+        raise AssertionError(f"unchanged parameters {unchanged[:20]}; "
+                             f"statistics or u/v not advanced {stale[:20]}")
+    del before
+    losses = {k: round(float(v), 4) for k, v in metrics.items()}
+    log(f"losses: {losses}")
+    state, _ = builder.train_step(state, batch)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = builder.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    p50 = statistics.median(times)
+    log(f"full-width training step (default opts, {SIZE}^2, batch {BATCH} "
+        f"per domain, bf16 policy): p50 {1e3 * p50:.2f} ms, "
+        f"{3 * BATCH / p50:.3f} img/s; steps "
+        + ", ".join(f"{1e3 * t:.2f}" for t in times)
+        + f" ms; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB; g_total {float(metrics['g_total']):.4f} d_total "
+        f"{float(metrics['d_total']):.4f}")
+
+    # information: where one step's time goes; g_step and d_step timed
+    # apart (a synchronise between them)
+    split = {"g_step": [], "d_step": []}
+    for _ in range(3):
+        for name in split:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = getattr(builder, name)(state, batch)
+            torch.cuda.synchronize()
+            split[name].append(1e3 * (time.perf_counter() - t0))
+    log("g_step / d_step apart (ms): " + "; ".join(
+        f"{k} " + ", ".join(f"{t:.2f}" for t in v) for k, v in split.items()))
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = builder.train_step(holder[0], batch)
+
+    table, busy, n_dev, wall = device_profile(torch, one_step)
+    state = holder[0]
+    log(f"one training step under torch.profiler: {wall:.2f} ms wall, "
+        f"device busy {busy:.2f} ms ({100 * busy / wall:.1f}%) over {n_dev} "
+        f"kernels and copies\n{table}")
+
+    # eval() re-bakes and re-packs: the trained model serves its weights
+    G = state.G.eval()
+    fresh = OmniGenerator(G.cfg)
+    fresh.load_state_dict(G.state_dict())
+    fresh = fresh.to(dev).eval()  # baked and packed on the card, as G
+    x = batch["r"]["x"]
+    uniform = torch.rand(9, 9, device=dev, generator=g)
+    outs = []
+    with torch.no_grad():
+        for model in (G, fresh):
+            d, s, m = model.infer_masker(x)
+            flood = model.paint_cloudy((m > 0.5).float(), x, s,
+                                       uniform=uniform)
+            outs.append((d, s, m, flood))
+    for a, b in zip(*outs):
+        if not torch.equal(a, b):
+            raise AssertionError("eval() after training differs from a fresh "
+                                 "load of the trained weights")
+    log("eval() after training: masker and cloudy flood bit-equal (f32) to a "
+        "fresh load of the trained state_dict()")
+    del state, G, fresh, outs, batch
+    torch.cuda.empty_cache()
+
+    # ---- 7.4 the bench -------------------------------------------------
+    out = subprocess.run(
+        [sys.executable, "-m", "climategan_torch.bench_train"],
+        cwd=ROOT, check=True, capture_output=True, text=True)
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    if not line["value"] > 0 or not line["max_memory_allocated"]:
+        raise AssertionError(f"bench_train: {line}")
+    log(json.dumps(line))
+    log(f"training phase: {time.perf_counter() - t_phase:.1f} s")
+    return {k: counted[k] for k in kernels.launches}
+
+
 def main() -> int:
     import torch
 
@@ -398,7 +657,7 @@ def run(torch) -> int:
         spade_cond_packed,
         spade_cond_plain,
     )
-    from climategan_torch.models import generator as generator_mod
+    from climategan_torch.kernels import masked_blend as masked_blend_mod
     from climategan_torch.models import norms as norms_mod
     from climategan_torch.ops.image import retrieve_sky_mask, unit_range_to_uint8
     from climategan_torch.utils.opts import load_opts
@@ -442,7 +701,7 @@ def run(torch) -> int:
     # weights packed when the model was built; a spade_cond call records
     # (seg, pack)
     patched = [(norms_mod, "spade_cond_packed", "spade_cond", spade_cond_packed),
-               (generator_mod, "masked_blend", "masked_blend", masked_blend),
+               (masked_blend_mod, "masked_blend", "masked_blend", masked_blend),
                (smog_mod, "smog_tail", "smog_tail", smog_tail),
                (fire_mod, "fire_color_grade", "fire_color_grade", fire_color_grade),
                (fire_mod, "fire_paste", "fire_paste", fire_paste)]
@@ -790,6 +1049,10 @@ def run(torch) -> int:
             f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     serving_phase(torch, opts, dev)
+    with torch.inference_mode(False), torch.enable_grad():
+        train_launches = training_phase(torch, dev)
+    for r in rows:
+        r["train_launches"] = train_launches[r["name"]]
 
     log(smi())
     log(json.dumps({"kernels": rows}))

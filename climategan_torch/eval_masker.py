@@ -75,7 +75,7 @@ def load_masker(args) -> OmniGenerator:
     else:
         print("WARNING: random weights (no -r given)", file=sys.stderr)
         G = create_generator(load_opts(), seed=0)
-    return G.to(device).eval()
+    return G.eval().to(device)
 
 
 @torch.inference_mode()

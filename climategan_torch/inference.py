@@ -67,7 +67,9 @@ def build_infer_fn(
     else:
         G = OmniGenerator(GenConfig.from_opts(opts))
         G.load_state_dict(state_dict, strict=True)
-    G = G.to(device=device, dtype=dtype).eval()
+    # eval() bakes the spectral kernels in f32 before the cast; the SPADE
+    # packs are made once, on the device and in the model's dtype
+    G = G.eval().to(device=device, dtype=dtype)
     pack_spade_weights(G)
 
     @torch.inference_mode()

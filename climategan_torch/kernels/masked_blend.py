@@ -53,10 +53,36 @@ def masked_blend_plain(x: torch.Tensor, fake: torch.Tensor,
     return (x.float() * (1.0 - mf) + fake.float() * mf).to(x.dtype)
 
 
+class MaskedBlend(torch.autograd.Function):
+    """``masked_blend`` under autograd: the forward is ``masked_blend``
+    (the kernel on CUDA tensors), the backward plain PyTorch in f32:
+    ``dx = g (1 - m)``, ``dfake = g m``, ``dm = sum_c g (fake - x)``, each
+    only where its input needs it."""
+
+    @staticmethod
+    def forward(ctx, x, fake, m):
+        ctx.save_for_backward(x, fake, m)
+        return masked_blend(x, fake, m)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, fake, m = ctx.saved_tensors
+        need_x, need_fake, need_m = ctx.needs_input_grad
+        g, mf = g.float(), m.float()
+        dx = (g * (1.0 - mf)).to(x.dtype) if need_x else None
+        dfake = (g * mf).to(fake.dtype) if need_fake else None
+        dm = None
+        if need_m:
+            dm = (g * (fake.float() - x.float())).sum(-1, keepdim=True)
+            dm = dm.to(m.dtype)
+        return dx, dfake, dm
+
+
 def masked_blend(x: torch.Tensor, fake: torch.Tensor,
                  m: torch.Tensor) -> torch.Tensor:
     """CPU tensors take the plain version; CUDA tensors launch the Triton
-    kernel, and anything it does not take raises."""
+    kernel, and anything it does not take raises. No gradient: see
+    ``MaskedBlend``."""
     if x.device.type == "cpu":
         return masked_blend_plain(x, fake, m)
     if x.device.type != "cuda":

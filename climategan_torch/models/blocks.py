@@ -1,7 +1,9 @@
 """Decoder building blocks (NCHW), named as the reference torch modules:
 Conv2dBlock (``conv`` [+ ``norm``]), ResBlock(s) (``model`` Sequentials),
 BaseDecoder (``proj_conv`` / ``low_level_conv`` / ``merge_feats_conv`` and
-the ``model`` Sequential) and SPADEResnetBlock.
+the ``model`` Sequential) and SPADEResnetBlock. ``update_sn`` goes to every
+spectral conv, as in the JAX modules: in train mode it stores the conv's
+new power-iteration u and v.
 """
 from __future__ import annotations
 
@@ -12,11 +14,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from climategan_torch.models.norms import (
+    BatchNorm2d,
     SNConv,
     SPADE,
     dual_spade,
     nhwc,
     pack_dual,
+    pack_fits,
 )
 from climategan_torch.ops.interpolate import resize, upsample_nearest
 
@@ -44,8 +48,16 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
 class UpsampleNearest(nn.Module):
     """x2 nearest upsample (the reference InterpolateNearest2d slot)."""
 
-    def forward(self, x):
+    def forward(self, x, update_sn: bool = False):
         return upsample_nearest(x, 2)
+
+
+def run_layers(layers: nn.Sequential, x: torch.Tensor,
+               update_sn: bool) -> torch.Tensor:
+    """A Sequential of update_sn-taking layers, in order."""
+    for layer in layers:
+        x = layer(x, update_sn=update_sn)
+    return x
 
 
 class Conv2dBlock(nn.Module):
@@ -72,17 +84,17 @@ class Conv2dBlock(nn.Module):
                            dilation=dilation, bias=use_bias,
                            spectral=use_spectral)
         if post_norm == "batch":
-            self.norm = nn.BatchNorm2d(output_dim)
+            self.norm = BatchNorm2d(output_dim)
         elif post_norm == "none":
             self.norm = None
         else:
             raise NotImplementedError(f"Conv2dBlock norm {post_norm!r}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
         if self.padding:
             p = self.padding
             x = F.pad(x, (p, p, p, p), mode=self.pad_mode)
-        x = self.conv(x)
+        x = self.conv(x, update_sn)
         if self.norm is not None:
             x = self.norm(x)
         return activation(x, self.activation)
@@ -98,8 +110,8 @@ class ResBlock(nn.Module):
                         pad_type=pad_type),
         )
 
-    def forward(self, x):
-        return x + self.model(x)
+    def forward(self, x, update_sn: bool = False):
+        return x + run_layers(self.model, x, update_sn)
 
 
 class ResBlocks(nn.Module):
@@ -109,8 +121,8 @@ class ResBlocks(nn.Module):
         self.model = nn.Sequential(*[
             ResBlock(dim, norm, activ, pad_type) for _ in range(num_blocks)])
 
-    def forward(self, x):
-        return self.model(x)
+    def forward(self, x, update_sn: bool = False):
+        return run_layers(self.model, x, update_sn)
 
 
 class BaseDecoder(nn.Module):
@@ -147,28 +159,33 @@ class BaseDecoder(nn.Module):
                                   norm="none", activation=output_activ))
         self.model = nn.Sequential(*layers)
 
-    def forward(self, z, z_depth: Optional[torch.Tensor] = None):
+    def forward(self, z, z_depth: Optional[torch.Tensor] = None,
+                update_sn: bool = False):
         low_level_feat = None
         if isinstance(z, (list, tuple)):
             if not self.use_low_level:
                 z = z[0]
             else:
                 z, low = z
-                low = self.low_level_conv(low)
+                low = self.low_level_conv(low, update_sn)
                 low_level_feat = resize(low, z.shape[-2:], "bilinear",
                                         align_corners=False)
         if z_depth is not None and self.use_dada:
             z = z * z_depth
         if self.proj_conv is not None:
-            z = self.proj_conv(z)
+            z = self.proj_conv(z, update_sn)
         if low_level_feat is not None:
-            z = self.merge_feats_conv(torch.cat([low_level_feat, z], dim=1))
-        return self.model(z)
+            z = self.merge_feats_conv(torch.cat([low_level_feat, z], dim=1),
+                                      update_sn)
+        return run_layers(self.model, z, update_sn)
 
 
 class SPADEResnetBlock(nn.Module):
-    """SPADE residual block with instance-norm SPADEs; with a learned
-    shortcut, norm_s and norm_0 run as one dual ``spade_cond`` launch."""
+    """SPADE residual block with instance-norm SPADEs; in eval mode, with
+    a learned shortcut, norm_s and norm_0 run as one dual ``spade_cond``
+    launch. Packs are made on the first eval forward (or by
+    ``pack_weights``) and again when the weights have moved to another
+    device or dtype; a mode switch and a weight load drop them."""
 
     def __init__(self, fin: int, fout: int, cond_nc: int,
                  use_spectral_norm: bool = True):
@@ -186,32 +203,54 @@ class SPADEResnetBlock(nn.Module):
         self.shortcut_pack = None
 
     def pack_weights(self) -> None:
-        """Packs the conditioning weights of this block's launches once."""
+        """Packs the conditioning weights of this block's launches."""
         if self.learned_shortcut:
             self.shortcut_pack = pack_dual(self.norm_s, self.norm_0)
         else:
             self.norm_0.pack_weights()
         self.norm_1.pack_weights()
 
-    def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    def current_shortcut_pack(self):
+        if not pack_fits(self.shortcut_pack, self.norm_s.mlp_shared[0].weight):
+            self.shortcut_pack = pack_dual(self.norm_s, self.norm_0)
+        return self.shortcut_pack
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        self.shortcut_pack = None
+        return self
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self.shortcut_pack = None
+
+    def forward(self, x: torch.Tensor, seg: torch.Tensor,
+                update_sn: bool = False) -> torch.Tensor:
         """``seg``: NCHW conditioning map at any size (nearest-resized)."""
-        seg = nhwc(resize(seg, x.shape[-2:], "nearest").to(x.dtype))
+        train = self.training
+        seg = resize(seg, x.shape[-2:], "nearest").to(x.dtype)
+        if not train:
+            seg = nhwc(seg)
+
+        def norm(spade, y):
+            return spade.forward_train(y, seg) if train else spade(y, seg)
+
         if self.learned_shortcut:
             x_s, dx = dual_spade(x, seg, self.norm_s, self.norm_0,
-                                self.shortcut_pack)
-            x_s = self.conv_s(x_s)
+                                 None if train else
+                                 self.current_shortcut_pack())
+            x_s = self.conv_s(x_s, update_sn)
         else:
-            x_s, dx = x, self.norm_0(x, seg)
-        dx = self.conv_0(lrelu(dx))
-        dx = self.conv_1(lrelu(self.norm_1(dx, seg)))
+            x_s, dx = x, norm(self.norm_0, x)
+        dx = self.conv_0(lrelu(dx), update_sn)
+        dx = self.conv_1(lrelu(norm(self.norm_1, dx)), update_sn)
         return x_s + dx
 
 
 def pack_spade_weights(model: nn.Module) -> None:
     """Packs every SPADE block's conditioning weights into the kernels'
-    layout, so that a forward re-lays out no weights. Call it after the
-    model has moved to its device and dtype, and again after any move or
-    weight load."""
+    layout now, on the model's device and in its dtype, rather than in the
+    first eval forward."""
     for m in model.modules():
         if isinstance(m, SPADEResnetBlock):
             m.pack_weights()

@@ -14,6 +14,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
+from climategan_torch.models.norms import BatchNorm2d
 from climategan_torch.ops.interpolate import resize
 
 
@@ -23,7 +24,7 @@ class ConvBN(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, ks, padding=padding,
                               dilation=dilation, bias=True)
-        self.bn = nn.BatchNorm2d(cout)
+        self.bn = BatchNorm2d(cout)
 
     def forward(self, x):
         return self.bn(self.conv(x))

@@ -33,13 +33,16 @@ class DADADepthDecoder(nn.Module):
                 UpsampleNearest(), Conv2dBlock(128, 32, 3, 1, 1, **kw),
                 nn.Conv2d(32, 1, 1))
 
-    def forward(self, z):
+    def forward(self, z, update_sn: bool = False):
         if isinstance(z, (list, tuple)):
             z = z[0]
-        y = self.enc4_3(self.enc4_2(self.enc4_1(z)))
-        z_depth = None if self.dec4 is None else self.dec4(y)
+        y = z
+        for block in (self.enc4_1, self.enc4_2, self.enc4_3):
+            y = block(y, update_sn)
+        z_depth = None if self.dec4 is None else self.dec4(y, update_sn)
         if self.upsample is not None:
-            y = self.upsample(y)
+            up, conv, out = self.upsample
+            y = out(conv(up(y), update_sn))
         depth = torch.mean(y, dim=1, keepdim=True)
         if depth.shape[3] != self.target_size:
             depth = resize(depth, (384, 384), "bicubic", align_corners=False)

@@ -4,17 +4,16 @@
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 
-from climategan_torch.kernels.masked_blend import masked_blend
+from climategan_torch.kernels.masked_blend import MaskedBlend
 from climategan_torch.models.deeplab import DeepLabV3Decoder
 from climategan_torch.models.depth import DADADepthDecoder
 from climategan_torch.models.masker import MaskBaseDecoder
-from climategan_torch.models.norms import SNConv, _SpectralParams, nhwc
+from climategan_torch.models.norms import init_weights, nhwc
 from climategan_torch.models.painter import PainterSpadeDecoder
 from climategan_torch.models.resnet import ResNetEncoder
 from climategan_torch.ops.interpolate import resize
@@ -103,8 +102,8 @@ class GenConfig:
 
 def paste(x: torch.Tensor, fake: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """``x * (1 - m) + fake * m`` on NCHW tensors through the
-    ``masked_blend`` kernel (which takes NHWC)."""
-    return masked_blend(nhwc(x), nhwc(fake), nhwc(m)).permute(0, 3, 1, 2)
+    ``masked_blend`` kernel (which takes NHWC), with a gradient."""
+    return MaskedBlend.apply(nhwc(x), nhwc(fake), nhwc(m)).permute(0, 3, 1, 2)
 
 
 class OmniGenerator(nn.Module):
@@ -140,52 +139,24 @@ class OmniGenerator(nn.Module):
                 latent_dim=c.p_latent_dim, spade_n_up=c.p_spade_n_up,
                 spade_use_spectral_norm=c.p_spade_use_spectral_norm)
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """Random weights from ``generator`` (drawn on the CPU): conv
-        kernels and biases uniform in +-1/sqrt(fan_in), unit spectral u/v,
-        batch-norm statistics near identity; spectral kernels re-baked."""
-        def fill(t, lo, hi):
-            r = torch.rand(t.shape, generator=generator, dtype=torch.float32)
-            t.copy_(lo + (hi - lo) * r)
-
-        def unit(t):
-            r = torch.randn(t.shape, generator=generator, dtype=torch.float32)
-            t.copy_(r / r.norm())
-
-        for mod in self.modules():
-            if isinstance(mod, (nn.Conv2d, _SpectralParams)) or (
-                    isinstance(mod, SNConv) and not mod.spectral):
-                w = mod.weight_bar if isinstance(mod, _SpectralParams) else mod.weight
-                bound = 1.0 / math.sqrt(w[0].numel())
-                fill(w, -bound, bound)
-                if mod.bias is not None:
-                    fill(mod.bias, -bound, bound)
-                if isinstance(mod, _SpectralParams):
-                    unit(mod.weight_u)
-                    unit(mod.weight_v)
-            elif isinstance(mod, nn.BatchNorm2d):
-                fill(mod.weight, 0.8, 1.2)
-                fill(mod.bias, -0.1, 0.1)
-                fill(mod.running_mean, -0.1, 0.1)
-                fill(mod.running_var, 0.8, 1.2)
-        for mod in self.modules():
-            if isinstance(mod, SNConv):
-                mod.bake()
+        """Random weights from ``generator`` (``norms.init_weights``)."""
+        init_weights(self, generator)
 
     # ---- masker ---------------------------------------------------------
     def encode(self, x):
         return self.encoder(x)
 
-    def depth(self, z):
-        return self.decoders["d"](z)
+    def depth(self, z, update_sn: bool = False):
+        return self.decoders["d"](z, update_sn)
 
     def segmentation(self, z, z_depth=None):
         return self.decoders["s"](z, z_depth)
 
-    def mask(self, z, z_depth=None, sigmoid: bool = True):
+    def mask(self, z, z_depth=None, sigmoid: bool = True,
+             update_sn: bool = False):
         logits = self.decoders["m"](
-            z, z_depth if self.cfg.m_use_dada else None)
+            z, z_depth if self.cfg.m_use_dada else None, update_sn)
         return torch.sigmoid(logits) if sigmoid else logits
 
     def infer_masker(self, x):
@@ -196,10 +167,11 @@ class OmniGenerator(nn.Module):
         return d, s, self.mask(z, z_depth)
 
     # ---- painter --------------------------------------------------------
-    def paint(self, m, x, no_paste: bool = False):
-        """painter(x * (1 - m)), then the paste of x outside the mask."""
+    def paint(self, m, x, no_paste: bool = False, update_sn: bool = False):
+        """painter(x * (1 - m)), then the paste of x outside the mask; the
+        gradient reaches the painter through the paste."""
         m = m.to(x.dtype)
-        fake = self.painter(x * (1.0 - m))
+        fake = self.painter(x * (1.0 - m), update_sn)
         if self.cfg.p_paste_original_content and not no_paste:
             return paste(x, fake, m)
         return fake

@@ -1,14 +1,27 @@
-"""Convolutions with baked spectral norm, instance norm and SPADE (NCHW).
+"""Convolutions with spectral norm, batch norm, instance norm and SPADE
+(NCHW), in an inference mode and a training mode.
 
 Parameter names follow the reference torch modules, so a reference state
 dict loads with plain ``load_state_dict``:
   * a spectral conv keeps ``module.weight_bar`` / ``module.bias`` /
     ``module.weight_u`` / ``module.weight_v``; a plain conv ``weight`` /
     ``bias``;
+  * ``BatchNorm2d`` keeps nn.BatchNorm2d's keys;
   * ``SPADE`` keeps ``mlp_shared.0`` / ``mlp_gamma`` / ``mlp_beta``.
+
+In eval mode a spectral conv runs a baked kernel and SPADE runs the
+``spade_cond`` kernel on packed weights. In train mode they compute as the
+JAX package's training step does, on the live parameters and under
+autograd: spectral norm runs its power iteration on every call, and SPADE's
+conditioning runs as plain convs (the kernel has no backward). Switching
+modes refreshes what the eval mode reads: ``train(False)`` re-bakes every
+spectral kernel (a buffer, which then moves and casts with the module) and
+either mode drops the SPADE packs; an eval-mode forward packs on first use
+and again when the weights have moved to another device or dtype.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -28,13 +41,19 @@ def _l2normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 def spectral_sigma(weight_bar: torch.Tensor, u: torch.Tensor,
-                   v: torch.Tensor) -> torch.Tensor:
-    """One power iteration from the stored ``u`` on the OIHW kernel
-    flattened to (O, I*KH*KW), in f32; returns sigma."""
-    w = weight_bar.detach().float().reshape(weight_bar.shape[0], -1)
-    v = _l2normalize(w.t() @ u.float())
-    u = _l2normalize(w @ v)
-    return u @ (w @ v)
+                   v: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One power iteration from the stored ``u`` on the detached OIHW
+    kernel flattened to (O, I*KH*KW), in f32 with autocast off; returns
+    ``(sigma, u, v)``. ``sigma = u @ (W @ v)`` carries the gradient into
+    ``weight_bar``; u and v carry none. (``v`` is not read: the iteration
+    starts from u, as the JAX package's does.)"""
+    with torch.autocast(weight_bar.device.type, enabled=False):
+        w = weight_bar.float().reshape(weight_bar.shape[0], -1)
+        w_ng = w.detach()
+        v = _l2normalize(w_ng.t() @ u.float())
+        u = _l2normalize(w_ng @ v)
+        return u @ (w @ v), u, v
 
 
 class _SpectralParams(nn.Module):
@@ -51,11 +70,16 @@ class _SpectralParams(nn.Module):
 class SNConv(nn.Module):
     """2-D convolution, optionally spectral-normalized.
 
-    A spectral conv runs with ``weight_bar / sigma``, baked into the
-    non-persistent buffer ``weight`` whenever its weights are loaded or
-    re-initialized (``bake``), so inference runs no power iteration. The
-    baked kernel is computed in f32 from the loaded values and then takes
+    Eval mode: a spectral conv runs with ``weight_bar / sigma`` baked into
+    the non-persistent buffer ``weight``, so inference runs no power
+    iteration. It is baked whenever weights are loaded, at ``init_weights``
+    and at ``train(False)``, in f32 from the current values, and then takes
     the module's dtype.
+
+    Train mode: sigma comes from ``spectral_sigma`` on every call, and the
+    conv output is multiplied by ``1 / sigma`` before the bias (the JAX
+    package's order). ``update_sn=True`` stores the new u and v; without it
+    they stay as they are.
     """
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
@@ -80,10 +104,16 @@ class SNConv(nn.Module):
         weight_bar = m.weight_bar if weight_bar is None else weight_bar
         u = m.weight_u if u is None else u
         v = m.weight_v if v is None else v
-        sigma = spectral_sigma(weight_bar, u.to(weight_bar.device),
-                               v.to(weight_bar.device))
+        sigma, _, _ = spectral_sigma(weight_bar, u.to(weight_bar.device),
+                                     v.to(weight_bar.device))
         baked = weight_bar.float() / sigma
         self.weight.copy_(baked.to(self.weight.device))
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if not mode:
+            self.bake()
+        return self
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
@@ -92,10 +122,79 @@ class SNConv(nn.Module):
         if self.spectral and all(k in state_dict for k in keys):
             self.bake(*(state_dict[k] for k in keys))
 
+    def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
+        if not self.spectral:
+            return F.conv2d(x, self.weight, self.bias, self.stride,
+                            self.padding, self.dilation)
+        m = self.module
+        if not self.training:
+            return F.conv2d(x, self.weight, m.bias, self.stride, self.padding,
+                            self.dilation)
+        sigma, u, v = spectral_sigma(m.weight_bar, m.weight_u, m.weight_v)
+        if update_sn:
+            with torch.no_grad():
+                m.weight_u.copy_(u)
+                m.weight_v.copy_(v)
+        y = F.conv2d(x, m.weight_bar, None, self.stride, self.padding,
+                     self.dilation)
+        y = y * (1.0 / sigma).to(y.dtype)
+        return y if m.bias is None else y + m.bias.to(y.dtype)[:, None, None]
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d (momentum 0.1, eps 1e-5, the same keys) whose
+    train-mode running variance takes the **biased** batch variance, as
+    flax's BatchNorm (the JAX package's) does; nn.BatchNorm2d takes the
+    unbiased one. The output normalizes by the batch statistics, with
+    their gradient; eval mode is nn.BatchNorm2d's. The running statistics
+    move by two ``lerp_``; ``num_batches_tracked`` keeps its key and is not
+    advanced (nn.BatchNorm2d reads it only when momentum is None)."""
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = self.module.bias if self.spectral else self.bias
-        return F.conv2d(x, self.weight, bias, self.stride, self.padding,
-                        self.dilation)
+        if not self.training:
+            return super().forward(x)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            # the batch variance from 1 / sqrt(var + eps), both f32
+            var = invstd.float().pow(-2).sub_(self.eps)
+            self.running_mean.lerp_(mean.float(), self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return y
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Random weights from ``generator`` (drawn on the CPU): conv kernels
+    and biases uniform in +-1/sqrt(fan_in), unit spectral u/v, batch-norm
+    affine and statistics near identity; spectral kernels re-baked."""
+    def fill(t, lo, hi):
+        r = torch.rand(t.shape, generator=generator, dtype=torch.float32)
+        t.copy_(lo + (hi - lo) * r)
+
+    def unit(t):
+        r = torch.randn(t.shape, generator=generator, dtype=torch.float32)
+        t.copy_(r / r.norm())
+
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv2d, _SpectralParams)) or (
+                isinstance(mod, SNConv) and not mod.spectral):
+            w = mod.weight_bar if isinstance(mod, _SpectralParams) else mod.weight
+            bound = 1.0 / math.sqrt(w[0].numel())
+            fill(w, -bound, bound)
+            if mod.bias is not None:
+                fill(mod.bias, -bound, bound)
+            if isinstance(mod, _SpectralParams):
+                unit(mod.weight_u)
+                unit(mod.weight_v)
+        elif isinstance(mod, nn.BatchNorm2d):
+            fill(mod.weight, 0.8, 1.2)
+            fill(mod.bias, -0.1, 0.1)
+            fill(mod.running_mean, -0.1, 0.1)
+            fill(mod.running_var, 0.8, 1.2)
+    for mod in model.modules():
+        if isinstance(mod, SNConv):
+            mod.bake()
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -115,11 +214,15 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class SPADE(nn.Module):
     """Spatially-adaptive instance norm: ``instance_norm(x) * (1 + gamma) +
-    beta`` with [gamma|beta] from the ``spade_cond`` kernel over the
-    conditioning map. ``pack_weights`` packs the conditioning weights into
-    the kernel's layout once (``pack_spade_weights`` does it for a whole
-    model, after it has moved to its device and dtype); until then each
-    call packs its own."""
+    beta``, [gamma|beta] from a conv MLP over the conditioning map.
+
+    Eval mode (``forward``, NHWC ``seg``): the ``spade_cond`` kernel, on
+    weights packed by ``pack_weights`` (``pack_spade_weights`` packs a
+    whole model up front); without a pack that fits the weights' device
+    and dtype, the forward packs and keeps the pack. A mode switch and a
+    weight load drop it. Train mode (``forward_train``, NCHW ``seg``): the
+    convs of ``mlp_shared``, ``mlp_gamma`` and ``mlp_beta`` on the live
+    parameters."""
 
     def __init__(self, norm_nc: int, cond_nc: int, nhidden: int = 128):
         super().__init__()
@@ -141,8 +244,24 @@ class SPADE(nn.Module):
 
     def pack_weights(self) -> SpadePack:
         k1, b1 = self.shared_weights()
-        self.pack = pack_spade_cond(k1, b1, [self.branch()])
+        self.pack = make_pack(pack_spade_cond, k1, b1, [self.branch()])
         return self.pack
+
+    def current_pack(self) -> SpadePack:
+        """The pack of the current weights, made if there is none that
+        fits their device and dtype."""
+        if not pack_fits(self.pack, self.mlp_shared[0].weight):
+            self.pack_weights()
+        return self.pack
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        self.pack = None
+        return self
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self.pack = None
 
     @staticmethod
     def modulate(normalized: torch.Tensor, gb: torch.Tensor) -> torch.Tensor:
@@ -153,12 +272,32 @@ class SPADE(nn.Module):
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
         """``seg``: NHWC conditioning map already at x's spatial size."""
-        pack = self.pack
-        if pack is None:
-            k1, b1 = self.shared_weights()
-            pack = pack_spade_cond(k1, b1, [self.branch()])
-        (gb,) = spade_cond_packed(seg, pack)
+        (gb,) = spade_cond_packed(seg, self.current_pack())
         return self.modulate(instance_norm(x), gb)
+
+    def forward_train(self, x: torch.Tensor, seg: torch.Tensor,
+                      normalized: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """``seg``: NCHW conditioning map already at x's spatial size;
+        ``normalized``: ``instance_norm(x)`` when the caller has it."""
+        actv = self.mlp_shared(seg)
+        if normalized is None:
+            normalized = instance_norm(x)
+        return normalized * (1.0 + self.mlp_gamma(actv)) + self.mlp_beta(actv)
+
+
+def make_pack(pack_fn, *args) -> SpadePack:
+    """``pack_fn(*args)`` outside inference mode, so that a pack made
+    during an inference-mode forward can serve any later eval forward."""
+    with torch.inference_mode(False):
+        return pack_fn(*args)
+
+
+def pack_fits(pack: Optional[SpadePack], weight: torch.Tensor) -> bool:
+    """Whether ``pack`` exists and was made from weights on ``weight``'s
+    device and in its dtype."""
+    return (pack is not None and pack.args[0].device == weight.device
+            and pack.args[0].dtype == weight.dtype)
 
 
 def pack_dual(norm_a: SPADE, norm_b: SPADE) -> SpadePack:
@@ -166,17 +305,21 @@ def pack_dual(norm_a: SPADE, norm_b: SPADE) -> SpadePack:
     concatenated, one branch each."""
     ka, ba = norm_a.shared_weights()
     kb, bb = norm_b.shared_weights()
-    return pack_spade_cond(torch.cat([ka, kb], dim=-1), torch.cat([ba, bb]),
-                           [norm_a.branch(), norm_b.branch()])
+    return make_pack(pack_spade_cond, torch.cat([ka, kb], dim=-1),
+                     torch.cat([ba, bb]), [norm_a.branch(), norm_b.branch()])
 
 
 def dual_spade(x: torch.Tensor, seg: torch.Tensor, norm_a: SPADE,
                norm_b: SPADE, pack: Optional[SpadePack] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Two SPADEs over the same (x, seg), as one ``spade_cond`` launch with
-    the two mlp_shared convs concatenated (a SPADE block's norm_s and
-    norm_0), from ``pack`` (``pack_dual``) or packed for this call; the
-    instance norm runs once."""
-    gb_a, gb_b = spade_cond_packed(seg, pack or pack_dual(norm_a, norm_b))
+    """Two SPADEs over the same (x, seg) with one instance norm (a SPADE
+    block's norm_s and norm_0). Eval mode: one ``spade_cond`` launch with
+    the two mlp_shared convs concatenated, from ``pack`` (``pack_dual``) or
+    packed for this call, on an NHWC ``seg``. Train mode: each SPADE's
+    ``forward_train`` on an NCHW ``seg``."""
     normalized = instance_norm(x)
+    if norm_a.training:
+        return (norm_a.forward_train(x, seg, normalized),
+                norm_b.forward_train(x, seg, normalized))
+    gb_a, gb_b = spade_cond_packed(seg, pack or pack_dual(norm_a, norm_b))
     return SPADE.modulate(normalized, gb_a), SPADE.modulate(normalized, gb_b)

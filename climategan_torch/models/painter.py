@@ -5,7 +5,9 @@ nearest-resized to (H, W) / 2^spade_n_up. Then head_0, G_middle_0,
 G_middle_1 and spade_n_up - 2 channel-halving up_spades, with a nearest x2
 upsample before each block after head_0, a final SPADE block, and
 ``conv_img`` + tanh. Every SPADE is conditioned on the masked input
-(cond_nc = 3) and computes its [gamma|beta] with the ``spade_cond`` kernel.
+(cond_nc = 3) and computes its [gamma|beta] with the ``spade_cond`` kernel
+in eval mode, with plain convs in train mode. ``update_sn`` stores the new
+power-iteration u/v of every spectral conv (train mode).
 """
 from __future__ import annotations
 
@@ -37,14 +39,15 @@ class PainterSpadeDecoder(nn.Module):
         self.final_spade = srb(final_nc, final_nc)
         self.conv_img = nn.Conv2d(final_nc, 3, 3, padding=1)
 
-    def forward(self, cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, cond: torch.Tensor,
+                update_sn: bool = False) -> torch.Tensor:
         zh = cond.shape[2] // 2 ** self.spade_n_up
         zw = cond.shape[3] // 2 ** self.spade_n_up
         y = self.fc(resize(cond, (zh, zw), "nearest"))
-        y = self.head_0(y, cond)
-        y = self.G_middle_0(upsample_nearest(y), cond)
-        y = self.G_middle_1(upsample_nearest(y), cond)
+        y = self.head_0(y, cond, update_sn)
+        y = self.G_middle_0(upsample_nearest(y), cond, update_sn)
+        y = self.G_middle_1(upsample_nearest(y), cond, update_sn)
         for block in self.up_spades:
-            y = block(upsample_nearest(y), cond)
-        y = self.final_spade(y, cond)
+            y = block(upsample_nearest(y), cond, update_sn)
+        y = self.final_spade(y, cond, update_sn)
         return torch.tanh(self.conv_img(lrelu(y)))

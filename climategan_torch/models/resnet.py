@@ -12,23 +12,25 @@ from typing import Sequence
 import torch.nn as nn
 import torch.nn.functional as F
 
+from climategan_torch.models.norms import BatchNorm2d
+
 
 class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  dilation: int = 1, downsample: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride, padding=dilation,
                                dilation=dilation, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.downsample = None
         if downsample:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes * 4, 1, stride, bias=False),
-                nn.BatchNorm2d(planes * 4))
+                BatchNorm2d(planes * 4))
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -50,7 +52,7 @@ class ResNetEncoder(nn.Module):
             raise NotImplementedError(f"output_stride {output_stride}")
         multi_grid = (1, 2, 4)
         self.conv1 = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         inplanes = 64
         for stage, planes in enumerate((64, 128, 256, 512)):
             blocks = []

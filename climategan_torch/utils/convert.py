@@ -7,7 +7,11 @@ with spectral ``u``/``v`` becomes ``<key>.module.weight_bar`` /
 ``.module.bias`` / ``.module.weight_u`` / ``.module.weight_v``; a BatchNorm
 wrapper's ``scale``/``bias``/``mean``/``var`` become ``weight``/``bias``/
 ``running_mean``/``running_var`` (plus a zero ``num_batches_tracked``).
-It is the inverse of the JAX package's reference -> JAX converter.
+It is the inverse of the JAX package's reference -> JAX converter, and
+carries everything a train-mode model reads (running statistics, u/v).
+``d_state_dict_from_jax(variables, dcfg)`` does the same for the
+discriminators, and ``vgg_state_dict_from_jax(variables)`` for the JAX
+package's ``VGG19Features`` (into torchvision's ``features.{i}`` keys).
 
 ``load_torch_state_dict(path)`` reads a released reference checkpoint and
 ``state_dict_from_reference(sd, cfg)`` turns its G state dict into exactly
@@ -22,6 +26,7 @@ from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from climategan_torch.models.discriminator import DisConfig
 from climategan_torch.models.generator import GenConfig, OmniGenerator
 
 Path = Tuple[str, ...]
@@ -156,21 +161,66 @@ def state_dict_from_jax(variables: Dict, cfg: GenConfig) -> Dict[str, torch.Tens
             sd[f"{tkey}.running_var"] = _tensor(s["var"])
             sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
             continue
-        p = _get(params, path)
-        if p is None or "kernel" not in p:
-            raise KeyError(f"no conv kernel at {'/'.join(path)}")
-        weight = _tensor(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
-        uv = _get(spectral, path)
-        if uv is not None and "u" in uv:
-            prefix = f"{tkey}.module"
-            sd[f"{prefix}.weight_bar"] = weight
-            sd[f"{prefix}.weight_u"] = _tensor(uv["u"])
-            sd[f"{prefix}.weight_v"] = _tensor(uv["v"])
-        else:
-            prefix = tkey
-            sd[f"{prefix}.weight"] = weight
-        if "bias" in p:
-            sd[f"{prefix}.bias"] = _tensor(p["bias"])
+        _conv(sd, params, spectral, tkey, path)
+    return sd
+
+
+def _conv(sd, params, spectral, tkey: str, path: Path) -> None:
+    """One conv's kernel (HWIO -> OIHW), bias and spectral u/v into
+    ``sd``."""
+    p = _get(params, path)
+    if p is None or "kernel" not in p:
+        raise KeyError(f"no conv kernel at {'/'.join(path)}")
+    weight = _tensor(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+    uv = _get(spectral, path)
+    if uv is not None and "u" in uv:
+        prefix = f"{tkey}.module"
+        sd[f"{prefix}.weight_bar"] = weight
+        sd[f"{prefix}.weight_u"] = _tensor(uv["u"])
+        sd[f"{prefix}.weight_v"] = _tensor(uv["v"])
+    else:
+        prefix = tkey
+        sd[f"{prefix}.weight"] = weight
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _tensor(p["bias"])
+
+
+def d_entries(dcfg: DisConfig) -> Iterator[Tuple[str, Path]]:
+    """(torch key prefix, JAX path) of every conv of the discriminators;
+    the module names are the same on both sides."""
+    if "p" in dcfg.tasks:
+        for i in range(dcfg.p_num_D):
+            q = ("p", f"discriminator_{i}")
+            for k in [f"conv{n}" for n in range(dcfg.p_n_layers + 1)] + ["conv_out"]:
+                yield ".".join(q + (k,)), q + (k,)
+    for name, on in (("m_advent", dcfg.m_use_advent and "m" in dcfg.tasks),
+                     ("s_advent", dcfg.s_use_advent and "s" in dcfg.tasks)):
+        if on:
+            for i in range(5):
+                yield f"{name}.conv{i}", (name, f"conv{i}")
+
+
+def d_state_dict_from_jax(variables: Dict,
+                          dcfg: DisConfig) -> Dict[str, torch.Tensor]:
+    """The JAX discriminators' ``{"params", "spectral"}`` (numpy) -> the
+    port's ``OmniDiscriminator(dcfg).state_dict()``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for tkey, path in d_entries(dcfg):
+        _conv(sd, variables["params"], variables.get("spectral", {}), tkey,
+              path)
+    return sd
+
+
+# torchvision vgg19.features indices of the 13 convs VGG19Features keeps
+VGG_CONV_INDICES = (0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28)
+
+
+def vgg_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX ``VGG19Features`` params (numpy) -> the port's
+    ``VGG19Features`` state dict (torchvision's keys)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, ti in enumerate(VGG_CONV_INDICES):
+        _conv(sd, variables["params"], {}, f"features.{ti}", (f"conv{i}",))
     return sd
 
 

@@ -359,3 +359,137 @@ def test_render_launches_each_kernel_per_batch():
     assert len(outs) == 9
     assert all(v.shape == (640, 640, 3) and v.dtype == np.uint8
                for v in outs.values())
+
+
+# ---- training (the port's train step) -------------------------------------
+
+def _tiny_train(device):
+    from climategan_torch.bench_train import synthetic_batch
+    from climategan_torch.train_step import StepBuilder
+    from climategan_torch.utils.opts import load_opts
+    from climategan_torch.utils.step_check import TINY_OVERRIDES, TINY_SIZE
+
+    builder = StepBuilder(load_opts(commandline_opts=TINY_OVERRIDES))
+    return builder, synthetic_batch(2, TINY_SIZE, 32, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_blend_gradient_matches_plain(dtype):
+    """MaskedBlend (the kernel forward, the plain backward) against
+    masked_blend_plain under autograd."""
+    from climategan_torch.kernels.masked_blend import MaskedBlend
+
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(3)
+    ins = [torch.rand(2, 64, 96, c, device=dev, generator=g).to(dtype)
+           for c in (3, 3, 1)]
+    up = torch.randn(2, 64, 96, 3, device=dev, generator=g)
+    want_in = [t.clone().requires_grad_() for t in ins]
+    got_in = [t.clone().requires_grad_() for t in ins]
+    want = torch.autograd.grad((masked_blend_plain(*want_in).float() * up).sum(),
+                               want_in)
+    reset_launches()
+    out = MaskedBlend.apply(*got_in)
+    assert launches["masked_blend"] == 1
+    got = torch.autograd.grad((out.float() * up).sum(), got_in)
+    for a, b in zip(got, want):
+        bar = 1e-6 if dtype == torch.float32 else \
+            b.float().abs().max().item() * 2.0 ** -8
+        assert (a.float() - b.float()).abs().max().item() <= bar
+
+
+def test_tiny_train_step_on_the_card_matches_the_cpu():
+    """g_step at tiny sizes in f32, card (kernels) vs CPU (plain), from the
+    same state: losses within 1e-4; G held leaf by leaf by
+    ``step_check.hold_state`` (first moments, every value whose gradient is
+    not rounding noise within 1e-6, >= 99.9% of values within 1e-6,
+    batch-norm statistics and u/v within 1e-5); D's parameters unchanged
+    and its u/v within 1e-5."""
+    import copy
+
+    from climategan_torch.utils.step_check import first_moments, hold_state
+
+    dev = _device()
+    builder, batch = _tiny_train("cpu")
+    cpu = builder.init_state(seed=0, device="cpu")
+    card = builder.state_for(copy.deepcopy(cpu.G).to(dev),
+                             copy.deepcopy(cpu.D).to(dev))
+    reset_launches()
+    _, m_dev = builder.g_step(card, {d: {k: v.to(dev) for k, v in b.items()}
+                                     for d, b in batch.items()},
+                              draws=(0.05, False))
+    assert launches["masked_blend"] == 1 and launches["spade_cond"] == 0
+    _, m_cpu = builder.g_step(cpu, batch, draws=(0.05, False))
+    for k, v in m_cpu.items():
+        assert abs(float(m_dev[k]) - float(v)) <= 1e-4 * abs(float(v)) + 1e-9, k
+    print(hold_state(card.G, cpu.G.state_dict(), builder.g_lr,
+                     first_moments(card.G, card.g_opt),
+                     first_moments(cpu.G, cpu.g_opt), what="G"))
+    hold_state(card.D, cpu.D.state_dict(), what="D")
+
+
+def test_eval_after_a_train_step_on_the_card_serves_the_trained_weights():
+    """After a step, eval() re-bakes the spectral kernels and re-packs the
+    SPADEs on the card: the forward (with spade_cond and masked_blend)
+    equals a fresh load of the trained weights, and differs from the
+    untrained model's."""
+    from climategan_torch.models.generator import OmniGenerator
+
+    dev = _device()
+    builder, batch = _tiny_train(dev)
+    state = builder.init_state(seed=0, device=dev)
+    untrained = OmniGenerator(state.G.cfg)
+    untrained.load_state_dict(state.G.state_dict())
+    state, _ = builder.train_step(state, batch)
+    G = state.G.eval()
+    fresh = OmniGenerator(G.cfg)
+    fresh.load_state_dict(G.state_dict())
+    fresh = fresh.to(dev).eval()
+    untrained = untrained.to(dev).eval()
+    x = batch["r"]["x"]
+    m = (x[:, :1] > 0).float()
+    with torch.no_grad():
+        reset_launches()
+        a = G.paint(m, x)
+        assert launches["spade_cond"] > 0 and launches["masked_blend"] == 1
+        torch.testing.assert_close(a, fresh.paint(m, x), rtol=0, atol=0)
+        for u, v in zip(G.infer_masker(x), fresh.infer_masker(x)):
+            torch.testing.assert_close(u, v, rtol=0, atol=0)
+        assert not torch.equal(a, untrained.paint(m, x))
+
+
+REFUSED = {
+    "train.grad_accumulation=2": "ROADMAP A.8 remainder",
+    "tpu.remat=true": "ROADMAP A.8 remainder",
+    "tpu.remat_d=true": "ROADMAP A.8 remainder",
+    "dis.p.use_local_discriminator=true": "ROADMAP A.8 remainder",
+    "gen.m.use_pl4m=true": "ROADMAP A.8 remainder",
+    "dis.m.gan_type=WGAN_gp": "ROADMAP A.8 remainder",
+    "dis.s.gan_type=WGAN_gp": "ROADMAP A.8 remainder",
+    "gen.p.diff_aug.use=true": "ROADMAP A.8 remainder",
+    "gen.m.use_spade=true": "ROADMAP A.10",
+    "gen.d.classify.enable=true": "ROADMAP A.10",
+    "gen.d.loss=dada": "ROADMAP A.10",
+}
+
+
+@pytest.mark.parametrize("override", sorted(REFUSED))
+def test_step_builder_refuses_what_is_not_ported(override):
+    """Each option whose branch of the JAX step is not ported raises a
+    ValueError naming its ROADMAP item (no card needed)."""
+    from climategan_torch.train_step import StepBuilder
+    from climategan_torch.utils.opts import load_opts
+
+    with pytest.raises(ValueError, match=REFUSED[override]):
+        StepBuilder(load_opts(commandline_opts=[override]))
+
+
+def test_step_builder_takes_the_ported_options():
+    """hinge, WGAN clipping, pseudo-label tasks and lr groups build."""
+    from climategan_torch.train_step import StepBuilder
+    from climategan_torch.utils.opts import load_opts
+
+    builder = StepBuilder(load_opts(commandline_opts=[
+        "gen.p.loss=hinge", "dis.m.gan_type=WGAN",
+        "gen.opt.lr={default: 0.0001, p: 0.00005}"]))
+    assert builder.cfg.p_loss == "hinge" and builder.g_lr_rules == {"painter": 0.5}

@@ -197,3 +197,42 @@ def test_painter_launches_run_on_packs_built_once(monkeypatch):
         out = painter(torch.rand(1, 3, 32, 32))
     assert out.shape == (1, 3, 32, 32)
     assert len(used) == 10 and set(used) == built
+
+
+def test_packs_follow_the_model_across_a_cast():
+    """eval() before a cast leaves no stale pack: the first eval forward
+    packs in the weights' current dtype and keeps the packs (they are made
+    outside inference mode, so a later forward with autograd on can use
+    them), and a later cast packs again in the new dtype."""
+    from climategan_torch.models.blocks import pack_spade_weights
+    from climategan_torch.models.norms import init_weights
+    from climategan_torch.models.painter import PainterSpadeDecoder
+
+    def packs(model):
+        return [p for m in model.modules()
+                for p in (getattr(m, "pack", None),
+                          getattr(m, "shortcut_pack", None)) if p is not None]
+
+    painter = PainterSpadeDecoder(latent_dim=16, spade_n_up=3)
+    init_weights(painter, torch.Generator().manual_seed(0))
+    painter.eval()
+    assert packs(painter) == []
+    painter.to(torch.bfloat16)
+    x = torch.rand(1, 3, 32, 32, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        out = painter(x.bfloat16())
+    first = packs(painter)
+    assert len(first) == 10
+    assert all(p.args[0].dtype == torch.bfloat16 for p in first)
+    assert not any(p.w1.is_inference() for p in first)
+    with torch.no_grad():
+        again = painter(x.bfloat16())
+    assert [id(p) for p in packs(painter)] == [id(p) for p in first]
+    pack_spade_weights(painter)  # packed up front: the same output
+    with torch.no_grad():
+        torch.testing.assert_close(painter(x.bfloat16()), out, rtol=0, atol=0)
+    torch.testing.assert_close(again, out, rtol=0, atol=0)
+    painter.float()
+    with torch.no_grad():
+        painter(x)
+    assert all(p.args[0].dtype == torch.float32 for p in packs(painter))

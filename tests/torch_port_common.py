@@ -12,6 +12,7 @@ kernels' edge values from here on a machine without JAX.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 from climategan_torch.models.generator import GenConfig, OmniGenerator
@@ -31,27 +32,7 @@ def jax_variables(opts, image_size: int, seed: int = 0):
     G = create_generator(opts)
     x = jax.ShapeDtypeStruct((1, image_size, image_size, 3), jnp.float32)
     shapes = jax.eval_shape(G.init, jax.random.PRNGKey(0), x)
-    rng = np.random.default_rng(seed)
-
-    def fill(path, leaf):
-        names = [getattr(p, "key", str(p)) for p in path]
-        coll, name, shape = names[0], names[-1], leaf.shape
-        if coll == "spectral":
-            v = rng.standard_normal(shape)
-            v = v / np.linalg.norm(v)
-        elif coll == "batch_stats":
-            v = (rng.uniform(0.5, 1.5, shape) if name == "var"
-                 else rng.uniform(-0.1, 0.1, shape))
-        elif name == "kernel":
-            v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
-        elif name == "scale":
-            v = rng.uniform(0.8, 1.2, shape)
-        else:
-            v = rng.uniform(-0.1, 0.1, shape)
-        return np.asarray(v, dtype=np.float32)
-
-    variables = jax.tree_util.tree_map_with_path(fill, shapes)
-    return G, variables
+    return G, fill_like(shapes, seed)
 
 
 def tiny_pair(image_size: int = 64, seed: int = 0):
@@ -149,3 +130,90 @@ def grade_edge_planes():
     gives 255)."""
     ints = np.arange(256, dtype=np.float32)
     return np.stack([np.roll(ints, 7 * c) for c in range(3)]).reshape(1, 3, 8, 32)
+
+
+# ---- the training step (tests/test_torch_port_train.py, _losses.py) ----
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """For the modules that import it: their CPU tests run small tensors,
+    and under the suite's parallel workers torch's default of a thread per
+    core oversubscribes the host many times over (a 2 s step took 79 s in
+    the full suite), so each of their tests runs on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+def fill_like(shapes, seed: int):
+    """Numpy values for a tree of ShapeDtypeStructs: kernels normal with
+    std 1/sqrt(fan_in), other params small, unit spectral u/v, batch-norm
+    statistics near identity (variances positive)."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        names = [getattr(p, "key", str(p)) for p in path]
+        coll, name, shape = names[0], names[-1], leaf.shape
+        if coll == "spectral":
+            v = rng.standard_normal(shape)
+            v = v / np.linalg.norm(v)
+        elif coll == "batch_stats":
+            v = (rng.uniform(0.5, 1.5, shape) if name == "var"
+                 else rng.uniform(-0.1, 0.1, shape))
+        elif name == "kernel":
+            v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+        elif name == "scale":
+            v = rng.uniform(0.8, 1.2, shape)
+        else:
+            v = rng.uniform(-0.1, 0.1, shape)
+        return np.asarray(v, dtype=np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def jax_d_variables(jopts, image_size: int, seed: int = 1):
+    """(JAX discriminators, their variables from numpy draws)."""
+    import jax
+    import jax.numpy as jnp
+
+    from climategan_tpu.models.discriminator import create_discriminator
+
+    D = create_discriminator(jopts)
+    s = D.cfg.s_num_classes
+    shapes = jax.eval_shape(
+        D.init, jax.random.PRNGKey(0),
+        jax.ShapeDtypeStruct((1, image_size, image_size, 4), jnp.float32),
+        jax.ShapeDtypeStruct((1, image_size, image_size, 2), jnp.float32),
+        jax.ShapeDtypeStruct((1, 32, 32, s), jnp.float32))
+    return D, fill_like(shapes, seed)
+
+
+def gan_draws(key, soft_shift: float, flip_prob: float):
+    """The (soft, flip) pair the JAX package's gan_loss draws from
+    ``key``."""
+    import jax
+
+    k1, k2 = jax.random.split(key)
+    return (float(jax.random.uniform(k1, ()) * soft_shift),
+            bool(jax.random.uniform(k2, ()) < flip_prob))
+
+
+def step_draws(rng, soft_shift: float, flip_prob: float):
+    """The draws of the JAX g_step and then d_step from TrainState.rng
+    ``rng``: each step splits its own key off the state's."""
+    import jax
+
+    k_g, rest = jax.random.split(rng)
+    k_d, _ = jax.random.split(rest)
+    return (gan_draws(k_g, soft_shift, flip_prob),
+            gan_draws(k_d, soft_shift, flip_prob))
+
+
+def port_batch(batch):
+    """A JAX NHWC numpy batch as the port's: NCHW float tensors, int64 seg
+    labels."""
+    return {dom: {k: (torch.from_numpy(np.asarray(v)).long() if k == "s"
+                      else nchw(v).contiguous()) for k, v in d.items()}
+            for dom, d in batch.items()}
