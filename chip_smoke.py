@@ -86,7 +86,26 @@ Phases, any failure exits non-zero:
      loaded from the trained state_dict() (information: g_step and d_step
      timed apart, one step under torch.profiler, its device busy share and
      top ops); (4) `python -m
-     climategan_torch.bench_train`, its JSON line (value > 0).
+     climategan_torch.bench_train`, its JSON line (value > 0);
+  8. the trainer through its entry point: a synthetic dataset (16 train and
+     4 val samples per domain r, s, rf as 720x960 PNGs; s with Unity-coded
+     depth and integer seg labels) in a temp dir; `python -m
+     climategan_torch.train` as a subprocess at the default opts (full
+     width) with data.loaders.batch_size=2 for 1 epoch (8 steps, the
+     evaluation, the checkpoint): 8 steps, spade_cond and masked_blend
+     launched in the epoch (counted by the trainer per epoch into
+     train.jsonl), finite validation metrics, checkpoints/latest_ckpt.pth,
+     latest.json and opts.json written; then the same command with
+     args.resume=true train.epochs=2: resumed from epoch 0 with a state
+     whose sha256 (checkpoint.state_digest) equals the epoch-0 file's, 8
+     more steps, the newest checkpoint at epoch 1, step 16; then
+     apply_events main() with -r <run dir> on 2 photos (three uint8
+     640x640x3 PNGs each) and Trainer.resume_from_path(run dir).infer_all,
+     each with the main path's launches {18, 1, 1, 1, 1}; then one step at
+     the default batch (6 per domain) and its peak memory (information:
+     steps/s, img/s and the loader's share over steps 2-8 and the whole
+     epoch, the evaluation's and the save's seconds, the checkpoint's
+     bytes, the peak memory at batch 2 and 6, the launches over the phase).
 The last three lines are the card's name and power limit, the kernels JSON
 line, and {"ok": true, "device": {...}}.
 """
@@ -619,6 +638,252 @@ def training_phase(torch, dev) -> dict:
     return {k: counted[k] for k in kernels.launches}
 
 
+# phase 8: the synthetic dataset and the trainer's runs
+TRAIN_SAMPLES, VAL_SAMPLES = 16, 4
+PHOTO_HW = (720, 960)
+TRAIN_BATCH, BIG_BATCH = 2, 6
+TRAINER_TIMEOUT = 900
+
+
+def write_training_dataset(root: Path) -> dict:
+    """TRAIN_SAMPLES train and VAL_SAMPLES val samples per domain (r, s, rf)
+    as PNGs at PHOTO_HW, in the layout of tests/test_trainer_integration.py
+    (x and m everywhere; s adds Unity-coded depth and integer seg labels);
+    returns the file lists {"train": {domain: json}, "val": {...}}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+    import numpy as np
+
+    h, w = PHOTO_HW
+    jobs, lists = [], {"train": {}, "val": {}}
+    for mode, n in (("train", TRAIN_SAMPLES), ("val", VAL_SAMPLES)):
+        for domain in ("r", "s", "rf"):
+            d = root / mode / domain
+            d.mkdir(parents=True)
+            samples = []
+            for i in range(n):
+                e = {"x": str(d / f"x_{i}.png"), "m": str(d / f"m_{i}.png")}
+                if domain == "s":
+                    e["d"] = str(d / f"d_{i}.png")
+                    e["s"] = str(d / f"s_{i}.png")
+                samples.append(e)
+                jobs.append((e, len(jobs)))
+            lp = root / f"{mode}_{domain}.json"
+            lp.write_text(json.dumps(samples))
+            lists[mode][domain] = str(lp)
+
+    def write(job):
+        e, seed = job
+        r = np.random.default_rng(seed)
+        cv2.imwrite(e["x"], r.integers(0, 256, (h, w, 3), np.uint8))
+        cv2.imwrite(e["m"], (r.random((h, w)) > 0.5).astype(np.uint8) * 255)
+        if "d" in e:  # R, G in range: the decoded depth stays positive
+            rgb = np.stack([np.full((h, w), 100, np.uint8),
+                            np.full((h, w), 100, np.uint8),
+                            r.integers(0, 254, (h, w), np.uint8)], -1)
+            cv2.imwrite(e["d"], rgb[..., ::-1])
+            cv2.imwrite(e["s"], r.integers(0, 11, (h, w), np.uint8))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, jobs))
+    return lists
+
+
+def train_cli(args) -> list:
+    """`python -m climategan_torch.train` in a subprocess on the card; its
+    train.jsonl records."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "climategan_torch.train",
+                          *args], cwd=ROOT, capture_output=True, text=True,
+                         timeout=TRAINER_TIMEOUT)
+    tail = "\n".join(out.stdout.splitlines()[-12:])
+    log(f"python -m climategan_torch.train (rc {out.returncode}, "
+        f"{time.perf_counter() - t0:.1f} s):\n{tail}")
+    if out.returncode != 0:
+        raise AssertionError(f"the trainer failed:\n{out.stderr[-4000:]}")
+    run_dir = Path(next(a.split("=", 1)[1] for a in args
+                        if a.startswith("output_path=")))
+    return [json.loads(line) for line in
+            (run_dir / "train.jsonl").read_text().splitlines()]
+
+
+def epoch_record(records, epoch: int) -> dict:
+    """The epoch's steps record merged with its launches record."""
+    rec = {}
+    for r in records:
+        if r.get("epoch") == epoch:
+            rec.update(r)
+    if "steps" not in rec or "launches" not in rec:
+        raise AssertionError(f"no record of epoch {epoch}: {records}")
+    return rec
+
+
+def trainer_phase(torch, dev) -> dict:
+    """Phase 8: the trainer through its entry point (see the module
+    docstring). Returns the launches of each kernel in the first run's
+    epoch."""
+    import os
+    import tempfile
+
+    import cv2
+    import numpy as np
+
+    from climategan_torch import apply_events as cli
+    from climategan_torch import bench_train, kernels
+    from climategan_torch.train_step import StepBuilder
+    from climategan_torch.trainer import Trainer
+    from climategan_torch.utils.checkpoint import read_checkpoint, state_digest
+    from climategan_torch.utils.opts import load_opts
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    lists = write_training_dataset(root / "data")
+    log(f"trainer phase: wrote {3 * (TRAIN_SAMPLES + VAL_SAMPLES)} samples "
+        f"at {PHOTO_HW[0]}x{PHOTO_HW[1]} in {time.perf_counter() - t0:.1f} s")
+    run = root / "run"
+    args = [f"data.files.train={json.dumps(lists['train'])}",
+            f"data.files.val={json.dumps(lists['val'])}",
+            f"data.loaders.batch_size={TRAIN_BATCH}", f"output_path={run}"]
+
+    # ---- 8.1 one epoch at the default opts, full width -----------------
+    records = train_cli(args + ["train.epochs=1"])
+    first = epoch_record(records, 0)
+    steps = TRAIN_SAMPLES // TRAIN_BATCH
+    if first["steps"] != steps:
+        raise AssertionError(f"epoch 0 took {first['steps']} steps, not "
+                             f"{steps}")
+    launches = first["launches"]
+    if not launches["spade_cond"] > 0 or not launches["masked_blend"] > 0:
+        raise AssertionError(f"the trainer's epoch did not launch spade_cond "
+                             f"and masked_blend: {launches}")
+    val = {k: v for r in records for k, v in r.items() if k.startswith("val")}
+    if not val or not all(np.isfinite(v) for v in val.values()):
+        raise AssertionError(f"validation metrics: {val}")
+    ckpts = run / "checkpoints"
+    for name in ("latest_ckpt.pth", "latest.json"):
+        if not (ckpts / name).is_file():
+            raise AssertionError(f"no checkpoints/{name}")
+    if not (run / "opts.json").is_file():
+        raise AssertionError("no opts.json")
+    saved = ckpts / "saved_epoch_0.pth"  # the epoch-0 file, kept by a link
+    os.link(ckpts / "latest_ckpt.pth", saved)
+    walls = first["step_s"][1:]
+    waits = first["loader_wait_s"][1:]
+    n_img = 3 * TRAIN_BATCH * len(walls)
+    log(f"trainer epoch (default opts, {SIZE}^2, batch {TRAIN_BATCH} per "
+        f"domain, {steps} steps, PNGs at {PHOTO_HW[0]}x{PHOTO_HW[1]}): steps "
+        f"2-{steps}: {len(walls) / sum(walls):.4f} steps/s, "
+        f"{n_img / sum(walls):.3f} img/s; waiting on the loader "
+        f"{100 * sum(waits) / sum(walls):.1f}% of those steps' time "
+        "(per step: " + ", ".join(f"{100 * a / b:.1f}%"
+                                  for a, b in zip(waits, walls)) + ")")
+    # the loader prefetches num_workers + 1 batches per domain while the
+    # first step waits, which covers most of a short epoch: the whole
+    # epoch's rate is the one a long run sees
+    log(f"trainer epoch whole: {steps} steps in {first['epoch_time_s']:.2f} "
+        f"s, {steps / first['epoch_time_s']:.4f} steps/s, "
+        f"{3 * TRAIN_BATCH * steps / first['epoch_time_s']:.3f} img/s; "
+        f"waiting on the loader {sum(first['loader_wait_s']):.2f} s "
+        f"({100 * sum(first['loader_wait_s']) / first['epoch_time_s']:.1f}%)")
+    log("trainer step host seconds: " + ", ".join(
+        f"{t:.3f}" for t in first["step_s"]) + "; loader waits: " + ", ".join(
+        f"{t:.3f}" for t in first["loader_wait_s"]))
+    log(f"trainer evaluation {first['eval_s']:.2f} s; checkpoint "
+        f"{first['ckpt_bytes']:,} B written in {first['save_s']:.2f} s; peak "
+        f"memory {first['max_memory_allocated']:,} B "
+        f"({first['max_memory_allocated'] / 2**30:.2f} GiB) at batch "
+        f"{TRAIN_BATCH}; launches over the epoch {launches}")
+    log(f"validation: " + ", ".join(f"{k} {v:.4f}" for k, v in val.items()))
+
+    # ---- 8.2 resume into epoch 1 ---------------------------------------
+    records = train_cli(args + ["train.epochs=2", "args.resume=true"])
+    resumed = [r for r in records if "resumed_from_epoch" in r]
+    want = state_digest(read_checkpoint(saved))
+    if len(resumed) != 1 or resumed[0]["resumed_from_epoch"] != 0 or \
+            resumed[0]["state_digest"] != want:
+        raise AssertionError(f"resume: {resumed}, saved state {want}")
+    second = epoch_record(records, 1)
+    latest = read_checkpoint(ckpts / "latest_ckpt.pth")
+    if second["steps"] != steps or latest["epoch"] != 1 or \
+            latest["step"] != 2 * steps:
+        raise AssertionError(f"epoch 1: {second['steps']} steps, latest "
+                             f"checkpoint epoch {latest['epoch']} step "
+                             f"{latest['step']}")
+    log(f"resumed at epoch 1 with the state of the epoch-0 checkpoint bit "
+        f"for bit (sha256 {want[:16]}...); epoch 1: {second['steps']} "
+        f"steps, launches {second['launches']}, evaluation "
+        f"{second['eval_s']:.2f} s, save {second['save_s']:.2f} s")
+    del latest
+    saved.unlink()
+
+    # ---- 8.3 serve the run dir -----------------------------------------
+    rng = np.random.default_rng(8)
+    (root / "imgs").mkdir()
+    for i in range(2):
+        cv2.imwrite(str(root / "imgs" / f"photo_{i}.png"),
+                    rng.integers(0, 256, (720, 1280, 3), np.uint8))
+    kernels.reset_launches()
+    if cli.main(["-i", str(root / "imgs"), "-o", str(root / "out"), "-r",
+                 str(run), "-b", "2", "--half"]) != 0:
+        raise AssertionError("apply_events -r <run dir> failed")
+    torch.cuda.synchronize()
+    served = dict(kernels.launches)
+    for i in range(2):
+        for event in cli.WRITTEN_EVENTS:
+            img = cv2.imread(str(root / "out" / f"photo_{i}_{event}.png"))
+            if img is None or img.shape != (SIZE, SIZE, 3) or \
+                    img.dtype != np.uint8:
+                raise AssertionError(f"photo_{i}_{event}.png: "
+                                     f"{None if img is None else img.shape}")
+    if served != MAIN_PATH_LAUNCHES:
+        raise AssertionError(f"serving the run dir launched {served}")
+    trainer = Trainer.resume_from_path(run, device=dev)
+    x = torch.rand(2, SIZE, SIZE, 3, device=dev) * 2 - 1
+    kernels.reset_launches()
+    out = trainer.infer_all(x, numpy=False)
+    inferred = dict(kernels.launches)
+    for event in cli.WRITTEN_EVENTS:
+        if out[event].shape != (2, SIZE, SIZE, 3) or \
+                out[event].dtype != torch.uint8:
+            raise AssertionError(f"infer_all {event}: {out[event].shape}")
+    if inferred != MAIN_PATH_LAUNCHES:
+        raise AssertionError(f"infer_all launched {inferred}")
+    log(f"apply_events -r <run dir>: 2 photos, 3 events each, uint8 "
+        f"{SIZE}x{SIZE}x3, launches {served}; Trainer.resume_from_path + "
+        f"infer_all: launches {inferred}")
+    del trainer, out
+
+    # ---- 8.4 one step at the default batch -----------------------------
+    torch.cuda.empty_cache()
+    builder = StepBuilder(load_opts())
+    state = builder.init_state(seed=0, device=dev)
+    batch = bench_train.synthetic_batch(BIG_BATCH, SIZE, 160, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = builder.train_step(state, batch)
+    torch.cuda.synchronize()
+    t_big = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not all(torch.isfinite(v).all() for v in metrics.values()):
+        raise AssertionError("non-finite losses at the default batch")
+    log(f"one step at the default batch ({BIG_BATCH} per domain, "
+        f"{3 * BIG_BATCH} images, first step): {t_big:.2f} s, peak memory "
+        f"{peak:,} B ({peak / 2**30:.2f} GiB)")
+    del state, batch, metrics
+    torch.cuda.empty_cache()
+    total = {k: first["launches"][k] + second["launches"][k] + served[k]
+             + inferred[k] for k in launches}
+    log(f"launches over the trainer phase (two epochs, serving, infer_all): "
+        f"{total}")
+    log(f"trainer phase: {time.perf_counter() - t_phase:.1f} s")
+    tmp.cleanup()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1051,8 +1316,10 @@ def run(torch) -> int:
     serving_phase(torch, opts, dev)
     with torch.inference_mode(False), torch.enable_grad():
         train_launches = training_phase(torch, dev)
+        trainer_launches = trainer_phase(torch, dev)
     for r in rows:
         r["train_launches"] = train_launches[r["name"]]
+        r["trainer_launches"] = trainer_launches[r["name"]]
 
     log(smi())
     log(json.dumps({"kernels": rows}))

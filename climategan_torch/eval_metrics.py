@@ -1,17 +1,59 @@
 """Masker evaluation metrics (numpy, host-side): the port's own copy of the
-part of the JAX package's ``eval_metrics.py`` that ``eval_masker`` uses.
+part of the JAX package's ``eval_metrics.py`` that ``eval_masker`` and the
+trainer's evaluation use.
 
 Re-design of reference climategan/eval_metrics.py: masker confusion
 metrics over {cannot=0, must=1, may=2} labels (:133-260) and
 edges_coherence_std_min (:484-543) without the sklearn/skimage deps
-(Sobel + pairwise distances in numpy). Pixel accuracy, mIOU and the
-error-map helpers wait for a caller (training, FID).
+(Sobel + pairwise distances in numpy); pixel accuracy and mIOU (:79-130) of
+the seg head. The error-map helpers wait for a caller.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+
+def accuracy(pred: np.ndarray, gt: np.ndarray) -> float:
+    """Pixel accuracy of int labels (or logits over the last axis)."""
+    pred, gt = np.asarray(pred), np.asarray(gt)
+    if gt.ndim == 4 and gt.shape[-1] == 1:
+        gt = gt[..., 0]
+    if pred.ndim > gt.ndim:
+        pred = np.argmax(pred, axis=-1)
+    return float((pred == gt).sum()) / gt.size
+
+
+def mIOU(pred: np.ndarray, label: np.ndarray, average: str = "macro",
+         num_classes: Optional[int] = None) -> float:
+    """Macro or weighted mean IOU (reference eval_metrics.py:79-130).
+
+    pred: int labels (N, H, W) or logits (N, H, W, C); label: int (N, H, W).
+    """
+    pred, label = np.asarray(pred), np.asarray(label)
+    if pred.ndim == label.ndim + 1:
+        num_classes = num_classes or pred.shape[-1]
+        pred = np.argmax(pred, axis=-1)
+    elif num_classes is None:
+        num_classes = int(max(pred.max(), label.max())) + 1
+
+    pred, label = pred.reshape(-1), label.reshape(-1)
+    classes = (list(range(num_classes)) if num_classes > 2
+               else [int(label.max())])
+    ious, weights = [], []
+    for c in classes:
+        pi, ti = pred == c, label == c
+        if ti.sum() > 0 or pi.sum() > 0:
+            inter = np.logical_and(pi, ti).sum()
+            union = pi.sum() + ti.sum() - inter
+            ious.append(inter / union)
+            weights.append(pi.sum())
+    if not ious:
+        return float("nan")
+    if average == "weighted":
+        return float(np.sum(np.multiply(weights, ious)) / np.sum(weights))
+    return float(np.mean(ious))
 
 
 def masker_classification_metrics(

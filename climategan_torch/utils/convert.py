@@ -316,3 +316,100 @@ def state_dict_from_reference(
                                  f"dict, {tuple(base[k].shape)} in the model")
             out[k] = v.detach().to(device="cpu", dtype=base[k].dtype).clone()
     return out
+
+
+# ---------------------------------------------------------------------------
+# pretrained weights for training: the DeepLab backbone and seg head
+# (reference deeplab/__init__.py:54-101, deeplab_v3.py:193-230) and
+# torchvision's VGG19 for the perceptual loss
+# ---------------------------------------------------------------------------
+
+
+def convert_pretrained_seg_resnet(sd: Mapping[str, Any],
+                                  skip_classes: int = 19
+                                  ) -> Dict[str, torch.Tensor]:
+    """A pretrained DeepLabv3+ (resnet) state dict's ``aspp.*`` and
+    ``decoder.*`` keys under the seg decoder's (``decoders.s.``), without
+    the source's 19-class classifier (deeplab_v3.py:197-216);
+    ``num_batches_tracked`` is not read, as the JAX converter reads it
+    not."""
+    out = {}
+    for k, v in sd.items():
+        if not k.startswith(("aspp.", "decoder.")) or \
+                k.endswith(".num_batches_tracked"):
+            continue
+        if k.startswith("decoder.conv_out.") and \
+                sd["decoder.conv_out.weight"].shape[0] == skip_classes:
+            continue
+        out["decoders.s." + k] = torch.as_tensor(v)
+    return out
+
+
+def maybe_load_pretrained_backbone(opts, G: OmniGenerator) -> bool:
+    """Honour ``gen.deeplabv3.use_pretrained`` and its
+    ``pretrained_model.resnet`` path (reference defaults.yaml:108-120,
+    deeplab/__init__.py:54-101): the ``backbone.*`` keys into the encoder
+    and, with the seg task, the ``aspp.*``/``decoder.*`` keys into the seg
+    decoder, in place. Returns whether it loaded. Every encoder key must be
+    in the file; other keys of the file are ignored."""
+    from pathlib import Path as FilePath
+
+    g = opts.gen
+    if not any(t in (opts.tasks or ()) for t in "msd"):
+        return False
+    if g.encoder.get("architecture", "deeplabv3") != "deeplabv3":
+        if g.deeplabv2.get("use_pretrained"):
+            raise ValueError("gen.deeplabv2.use_pretrained: the DeepLabv2 "
+                             "encoder is not ported yet (ROADMAP A.10)")
+        return False
+    conf = g.deeplabv3
+    if not conf.get("use_pretrained"):
+        return False
+    backbone = conf.get("backbone", "resnet")
+    if backbone != "resnet":
+        raise ValueError(f"gen.deeplabv3.backbone={backbone!r}: only the "
+                         "resnet backbone is ported (ROADMAP A.10)")
+    pm = conf.get("pretrained_model") or {}
+    path = str(pm.get(backbone, "") if isinstance(pm, Mapping) else pm)
+    if not path or not FilePath(path).exists():
+        raise FileNotFoundError(
+            f"gen.deeplabv3.use_pretrained set but pretrained_model."
+            f"{backbone} {path!r} does not exist")
+    sd = load_torch_state_dict(path)
+    new = {"encoder." + k[len("backbone."):]: torch.as_tensor(v)
+           for k, v in sd.items() if k.startswith("backbone.")
+           and not k.endswith(".num_batches_tracked")}
+    if "s" in opts.tasks and g.s.get("architecture",
+                                     "deeplabv3") == "deeplabv3":
+        new.update(convert_pretrained_seg_resnet(sd))
+    target = G.state_dict()
+    missing = [k for k in target if k.startswith("encoder.") and k not in new
+               and not k.endswith(".num_batches_tracked")]
+    if missing:
+        raise KeyError(f"{path}: {len(missing)} encoder keys missing, e.g. "
+                       f"{missing[:3]}")
+    for k in list(new):
+        if k not in target:
+            del new[k]
+        elif tuple(new[k].shape) != tuple(target[k].shape):
+            raise ValueError(f"{path}: {k} has shape {tuple(new[k].shape)}, "
+                             f"the model {tuple(target[k].shape)}")
+    G.load_state_dict({**target, **new}, strict=True)
+    return True
+
+
+def load_vgg19_weights(path, vgg: torch.nn.Module) -> torch.nn.Module:
+    """A torchvision vgg19 state dict into ``losses.VGG19Features`` (whose
+    keys are torchvision's), conv by conv up to the first one the file
+    lacks, as the JAX package's loader reads it."""
+    sd = load_torch_state_dict(path)
+    own = vgg.state_dict()
+    new = {}
+    for ti in VGG_CONV_INDICES:
+        if f"features.{ti}.weight" not in sd:
+            break
+        for kind in ("weight", "bias"):
+            new[f"features.{ti}.{kind}"] = torch.as_tensor(
+                sd[f"features.{ti}.{kind}"])
+    vgg.load_state_dict({**own, **new}, strict=True)
+    return vgg

@@ -8,8 +8,10 @@ copy of the two YAML files under ``climategan_torch/config/``.
 from __future__ import annotations
 
 import copy
+import os
+import re
 from pathlib import Path
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import yaml
 
@@ -61,6 +63,16 @@ class Opts(dict):
             del self[key]
         except KeyError as e:
             raise AttributeError(key) from e
+
+    def to_dict(self) -> dict:
+        """Plain dicts and lists all the way down (for YAML and JSON)."""
+        def plain(v):
+            if isinstance(v, Mapping):
+                return {k: plain(x) for k, x in v.items()}
+            if isinstance(v, (list, tuple)):
+                return [plain(x) for x in v]
+            return v
+        return plain(self)
 
 
 def merge(source: Mapping, destination: Opts) -> Opts:
@@ -151,3 +163,64 @@ def load_opts(path=None, default=None, commandline_opts=None) -> Opts:
     if "events" not in opts:
         opts["events"] = load_yaml(EVENTS_PATH)
     return opts
+
+
+def env_expand(path) -> str:
+    """Expand $ENV vars and ~ in a path (reference utils.py:367)."""
+    return os.path.expanduser(os.path.expandvars(str(path)))
+
+
+def flatten_opts(opts: Mapping, prefix: str = "") -> dict:
+    """Nested opts -> {dotted.key: leaf} (reference utils.py:385)."""
+    out = {}
+    for k, v in opts.items():
+        key = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(flatten_opts(v, key))
+        elif isinstance(v, list) and v and isinstance(v[0], Mapping):
+            for i, item in enumerate(v):
+                out.update(flatten_opts(item, f"{key}.{i}"))
+        else:
+            out[key] = v
+    return out
+
+
+def _job_id(job_id: Optional[str] = None) -> Optional[str]:
+    return job_id or os.environ.get("CLIMATEGAN_JOB_ID") \
+        or os.environ.get("SLURM_JOBID")
+
+
+def find_existing_training(opts, job_id: Optional[str] = None):
+    """Auto-resume (reference utils.py:741-805, train.py:87-100): the
+    newest sibling of ``opts.output_path`` whose ``job_id.txt`` holds this
+    job's id (CLIMATEGAN_JOB_ID or SLURM_JOBID), else None."""
+    job_id = _job_id(job_id)
+    if not job_id:
+        return None
+    base = Path(env_expand(opts.output_path)).resolve()
+    candidates = [d for d in base.parent.glob(base.name + "*")
+                  if (d / "job_id.txt").exists()
+                  and (d / "job_id.txt").read_text().strip() == str(job_id)]
+    if not candidates:
+        return None
+    return max(candidates, key=lambda d: d.stat().st_mtime)
+
+
+def write_job_id(output_path, job_id: Optional[str] = None) -> None:
+    job_id = _job_id(job_id)
+    if job_id:
+        Path(output_path).mkdir(parents=True, exist_ok=True)
+        (Path(output_path) / "job_id.txt").write_text(str(job_id))
+
+
+def get_increased_path(path) -> Path:
+    """A path that does not exist yet: ``path`` itself, else its sibling
+    with " (i)" appended (reference utils.py:308-340)."""
+    path = Path(path).resolve()
+    if not path.exists():
+        return path
+    stem = re.sub(r" \(\d+\)$", "", path.name)
+    i = 1
+    while (path.parent / f"{stem} ({i})").exists():
+        i += 1
+    return path.parent / f"{stem} ({i})"

@@ -9,9 +9,13 @@ The product story is "download the released trained weights and point
   * **reference-style run dir**: a dir holding ``opts.yaml`` and
     ``checkpoints/latest_ckpt.pth`` (or any ``*.pth``), what the reference's
     own training runs write;
-  * **orbax run dir** (``checkpoints/latest.json``): the JAX package's own
-    format. It is recognised so that the answer is the same as the JAX
-    package's, but loading it raises: reading orbax needs the JAX stack.
+  * **port run dir**: what the port's trainer writes, ``checkpoints/`` with
+    ``latest_ckpt.pth`` and ``latest.json`` naming the newest checkpoint,
+    which wins;
+  * **orbax run dir** (``checkpoints/latest.json`` naming no ``.pth``): the
+    JAX package's own format. It is recognised so that the answer is the
+    same as the JAX package's, but loading it raises: reading orbax needs
+    the JAX stack (ROADMAP A.11).
 
 Opts are found next to the checkpoint (``opts.json`` / ``opts.yaml`` /
 ``opts.yml`` in the run dir) and merged over the port's defaults, which
@@ -19,6 +23,7 @@ match the released checkpoints' architecture.
 """
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Dict, Iterable, Mapping, Optional, Tuple
 
@@ -51,6 +56,21 @@ def find_torch_ckpt(d: Path) -> Optional[Path]:
     return None
 
 
+def latest_torch_ckpt(ckpts: Path) -> Optional[Path]:
+    """The ``.pth`` that ``<ckpts>/latest.json`` names (the port trainer's
+    newest checkpoint; a relative name is under ``ckpts``), else None (an
+    orbax ``latest.json`` names a directory)."""
+    try:
+        meta = json.loads((ckpts / "latest.json").read_text())
+    except (OSError, ValueError):
+        return None
+    name = meta.get("latest") if isinstance(meta, dict) else None
+    if not name or Path(str(name)).suffix not in (".pth", ".pt"):
+        return None
+    f = ckpts / str(name)
+    return f.resolve() if f.is_file() else None
+
+
 def resolve_checkpoint(path) -> Tuple[str, Path]:
     """Classify a resume path -> ("orbax", run_dir) | ("torch", pth_file).
 
@@ -63,10 +83,12 @@ def resolve_checkpoint(path) -> Tuple[str, Path]:
         raise FileNotFoundError(
             f"{p} is a file but not a torch checkpoint (.pth/.pt)")
     if p.is_dir():
-        if (p / "checkpoints" / "latest.json").exists():
-            return "orbax", p
-        if (p / "latest.json").exists():  # the checkpoints dir itself
-            return "orbax", p.parent
+        for ckpts in (p / "checkpoints", p):  # the run dir or its checkpoints
+            if (ckpts / "latest.json").exists():
+                newest = latest_torch_ckpt(ckpts)
+                if newest is not None:
+                    return "torch", newest
+                return "orbax", ckpts.parent if ckpts == p else p
         t = find_torch_ckpt(p)
         if t is not None:
             return "torch", t
@@ -97,6 +119,20 @@ def discover_opts(run: Path, overrides=None) -> Opts:
     return load_opts(commandline_opts=overrides)
 
 
+def torch_checkpoint(path) -> Path:
+    """The ``.pth`` file a resume path resolves to; an orbax run dir raises
+    a ValueError naming ROADMAP A.11."""
+    kind, p = resolve_checkpoint(path)
+    if kind == "orbax":
+        raise ValueError(
+            f"{p} is an orbax run dir (checkpoints/latest.json), the JAX "
+            f"package's checkpoint format, which the PyTorch port cannot "
+            f"read (ROADMAP A.11); the port serves and resumes reference "
+            f".pth files, reference-style run dirs "
+            f"(checkpoints/latest_ckpt.pth) and its own trainer's run dirs")
+    return p
+
+
 def load_state(path, opts, parts: Tuple[str, ...] = BOTH,
                into: Optional[Mapping[str, torch.Tensor]] = None,
                allow_pickle: bool = False) -> Dict[str, torch.Tensor]:
@@ -104,14 +140,8 @@ def load_state(path, opts, parts: Tuple[str, ...] = BOTH,
     named by ``parts``) from a resume path; the groups outside ``parts``,
     and groups a checkpoint lacks entirely, come from ``into`` (zeros when
     None)."""
-    kind, p = resolve_checkpoint(path)
-    if kind == "orbax":
-        raise ValueError(
-            f"{p} is an orbax run dir (checkpoints/latest.json), the JAX "
-            f"package's checkpoint format, which the PyTorch port cannot "
-            f"read; the port serves reference .pth files and reference-style "
-            f"run dirs (checkpoints/latest_ckpt.pth)")
-    sd = load_torch_state_dict(p, allow_pickle=allow_pickle)
+    sd = load_torch_state_dict(torch_checkpoint(path),
+                               allow_pickle=allow_pickle)
     return state_dict_from_reference(sd, GenConfig.from_opts(opts),
                                      parts=parts, lenient=True, into=into)
 

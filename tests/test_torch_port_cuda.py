@@ -428,6 +428,120 @@ def test_tiny_train_step_on_the_card_matches_the_cpu():
     hold_state(card.D, cpu.D.state_dict(), what="D")
 
 
+def test_two_trainer_steps_on_the_card_match_the_cpu(tmp_path):
+    """One epoch of Trainer.run_epoch at tiny sizes in f32 (4 samples per
+    domain: 2 steps) on the card and on the CPU, from the same seed and the
+    same batches. ``step_check.hold_state``'s bars are set for one g_step or
+    d_step from one state (a d_step's G forward advances G's u/v from the
+    weights its g_step moved, which carry the noise values' differences),
+    so the CPU's losses and state after each half step are recorded, and
+    the card's run is held to them after the same half step and then given
+    the CPU's state before it goes on. Every half: losses within 1e-4
+    relative. Step 1's g_step and d_step and step 2's d_step: hold_state.
+    Step 2's g_step: its statistics and u/v within 1e-5 and at most 0.1%
+    of G's values off by more than 1e-6 (hold_state's bars on them); its
+    first moments are not held leaf by leaf, as two f32 conv
+    implementations on the CPU (oneDNN on and off) put the mask decoder's
+    2-7% apart there: its gradient has fallen to 4e-5..1.7e-4 of G's
+    largest, just over the noise floor measured at step 1."""
+    import copy
+    import random
+
+    from climategan_torch.trainer import Trainer
+    from climategan_torch.utils.opts import load_opts
+    from climategan_torch.utils.step_check import (
+        STATS,
+        TINY_OVERRIDES,
+        first_moments,
+        hold_state,
+    )
+    from tests.torch_port_common import TRANSFORMS, write_dataset
+
+    dev = _device()
+    lists = write_dataset(tmp_path / "data")
+    trainers = {}
+    for where in ("cpu", dev):
+        opts = load_opts(commandline_opts=TINY_OVERRIDES)
+        opts.data.files = {"base": "", **lists}
+        opts.data.loaders = {"batch_size": 2, "num_workers": 0}
+        opts.data.transforms = TRANSFORMS
+        opts.train.lambdas.G.p.vgg = 0
+        opts.output_path = str(tmp_path / str(where))
+        random.seed(0)
+        trainers[where] = Trainer(opts, device=where).setup(seed=0)
+    cpu, card = trainers["cpu"], trainers[dev]
+    after = []  # the CPU's losses and (G, D, g_opt, d_opt) after each half
+
+    def recorded(real):
+        def half(state, *a, **k):
+            state, metrics = real(state, *a, **k)
+            after.append(({k: float(v) for k, v in metrics.items()},
+                          copy.deepcopy((state.G.state_dict(),
+                                         state.D.state_dict(), state.g_opt,
+                                         state.d_opt))))
+            return state, metrics
+        return half
+
+    def values_and_stats(got, want, what):
+        sd = got.state_dict()
+        params = dict(got.named_parameters())
+        off = total = 0
+        for k, v in sd.items():
+            d = (v.float().cpu() - want[k].float()).abs()
+            if k.rsplit(".", 1)[-1] in STATS:
+                assert d.max().item() <= 1e-5, (what, k)
+            elif k in params:
+                off += int((d > 1e-6).sum())
+                total += d.numel()
+        assert off <= 1e-3 * total, (what, off, total)
+        print(f"{what}: statistics and u/v within 1e-5; {off} of {total} "
+              "values off by more than 1e-6")
+
+    def held(real, stepped, other, lr):
+        def half(state, *a, **k):
+            state, metrics = real(state, *a, **k)
+            losses, want = after.pop(0)
+            for key, v in losses.items():
+                assert abs(float(metrics[key]) - v) <= 1e-4 * abs(v) + 1e-9, key
+            G, D, g_opt, d_opt = want
+            sd = {"G": G, "D": D}
+            module = getattr(state, stepped)
+            what = f"step {state.step + (stepped == 'G')} {real.__name__}"
+            if what == "step 2 g_step":
+                values_and_stats(module, sd[stepped], f"{what} {stepped}")
+            else:
+                opt = {"G": g_opt, "D": d_opt}[stepped]
+                print(hold_state(module, sd[stepped], lr,
+                                 first_moments(module, getattr(
+                                     state, f"{stepped.lower()}_opt")),
+                                 first_moments(module, opt),
+                                 what=f"{what} {stepped}"))
+            hold_state(getattr(state, other), sd[other],
+                       what=f"{what} {other}")
+            state.G.load_state_dict(G)
+            state.D.load_state_dict(D)
+            state.g_opt, state.d_opt = (
+                {k: ([t.to(dev) for t in v] if isinstance(v, (list, tuple))
+                     else v) for k, v in o.items()} for o in want[2:])
+            return state, metrics
+        return half
+
+    for name, stepped, other, lr in (("g_step", "G", "D", cpu.builder.g_lr),
+                                     ("d_step", "D", "G", cpu.builder.d_lr)):
+        setattr(cpu.builder, name, recorded(getattr(cpu.builder, name)))
+        setattr(card.builder, name, held(getattr(card.builder, name),
+                                         stepped, other, lr))
+    random.seed(1)
+    cpu.run_epoch()
+    assert len(after) == 4
+    random.seed(1)
+    reset_launches()
+    card.run_epoch()
+    assert launches["masked_blend"] == 4 and launches["spade_cond"] == 0
+    assert not after
+    assert card.state.step == cpu.state.step == 2
+
+
 def test_eval_after_a_train_step_on_the_card_serves_the_trained_weights():
     """After a step, eval() re-bakes the spectral kernels and re-packs the
     SPADEs on the card: the forward (with spade_cond and masked_blend)

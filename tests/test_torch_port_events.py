@@ -48,10 +48,11 @@ from climategan_torch.models.generator import GenConfig
 from climategan_torch.ops import image
 from climategan_torch.ops.blur import box_dilate, gaussian_blur
 from climategan_torch.utils.convert import state_dict_from_jax
-from tests.torch_port_common import (
+from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
     GRADE_MEANS,
     grade_edge_planes,
     nchw,
+    one_thread,
     smog_edge_planes,
     tiny_pair,
     to_nhwc,

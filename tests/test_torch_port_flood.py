@@ -20,7 +20,10 @@ from climategan_tpu.utils.bn_fold import bake_spectral_norm
 from climategan_torch.inference import build_infer_fn
 from climategan_torch.models.generator import GenConfig
 from climategan_torch.utils.convert import state_dict_from_jax
-from tests.torch_port_common import tiny_pair
+from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
+    one_thread,
+    tiny_pair,
+)
 
 BIN_VALUES = (-1.0, 0.5)
 

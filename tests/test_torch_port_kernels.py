@@ -22,6 +22,7 @@ from climategan_torch.kernels.spade_cond import (
     spade_cond_plain,
 )
 from climategan_torch.models.generator import GenConfig
+from tests.torch_port_common import one_thread  # noqa: F401 (a fixture)
 
 
 def _spade_case(seed, N, H, W, cnc, hids, ncs, b1_value=None):

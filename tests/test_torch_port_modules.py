@@ -17,7 +17,12 @@ from climategan_tpu.ops.perlin import mix_noise as jax_mix_noise
 from climategan_torch.ops.image import normalize, unit_range_to_uint8
 from climategan_torch.ops.interpolate import resize
 from climategan_torch.ops.perlin import mix_noise
-from tests.torch_port_common import nchw, tiny_pair, to_nhwc
+from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
+    nchw,
+    one_thread,
+    tiny_pair,
+    to_nhwc,
+)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -19,9 +19,10 @@ from climategan_torch.utils.convert import state_dict_from_jax
 from climategan_torch.utils.opts import load_opts as torch_load_opts
 from climategan_tpu.utils import native as jax_native
 from climategan_tpu.utils import serving as jax_serving
-from tests.torch_port_common import (
+from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
     jax_cfg,
     jax_variables,
+    one_thread,
     write_run_dir,
     zeros_like_tree,
 )

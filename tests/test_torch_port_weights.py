@@ -24,7 +24,11 @@ from climategan_torch.inference import build_infer_fn
 from climategan_torch.models.generator import GenConfig, OmniGenerator
 from climategan_torch.utils.convert import state_dict_from_jax
 from climategan_torch.utils.opts import load_opts
-from tests.torch_port_common import jax_cfg, tiny_pair
+from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
+    jax_cfg,
+    one_thread,
+    tiny_pair,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "climategan_tpu"}

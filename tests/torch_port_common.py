@@ -11,6 +11,8 @@ kernels' edge values from here on a machine without JAX.
 """
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -217,3 +219,79 @@ def port_batch(batch):
     return {dom: {k: (torch.from_numpy(np.asarray(v)).long() if k == "s"
                       else nchw(v).contiguous()) for k, v in d.items()}
             for dom, d in batch.items()}
+
+
+# ---- the data pipeline and the trainer (tests/test_torch_port_data.py,
+# _trainer.py): a dataset in the layout of tests/test_trainer_integration.py
+
+DATA_SIZE = 32
+H, W = 72, 96
+TRANSFORMS = [
+    {"name": "hflip", "ignore": "val", "p": 0.5},
+    {"name": "resize", "ignore": False, "new_size": DATA_SIZE + 8,
+     "keep_aspect_ratio": True},
+    {"name": "crop", "ignore": False, "center": "val", "height": DATA_SIZE,
+     "width": DATA_SIZE},
+    {"name": "resize", "ignore": False,
+     "new_size": {"default": DATA_SIZE, "d": DATA_SIZE, "s": DATA_SIZE}},
+]
+
+
+def write_dataset(root, n: int = 4, kitti: int = 0):
+    """Synthetic samples and their JSON lists (train and val list the same
+    samples); returns {"train": {domain: list}, "val": {...}}."""
+    import cv2
+
+    rng = np.random.RandomState(0)
+    lists = {"train": {}, "val": {}}
+    domains = ("r", "s", "rf") + (("kitti",) if kitti else ())
+    for domain in domains:
+        d = root / domain
+        d.mkdir(parents=True, exist_ok=True)
+        samples = []
+        for i in range(kitti if domain == "kitti" else n):
+            x = rng.randint(0, 255, (H, W, 3), np.uint8)
+            entry = {"x": str(d / f"x_{i}.png")}
+            cv2.imwrite(entry["x"], x[..., ::-1])
+            m = (rng.rand(H, W) > 0.5).astype(np.uint8) * 255
+            entry["m"] = str(d / f"m_{i}.png")
+            cv2.imwrite(entry["m"], m)
+            if domain == "s":
+                dd = np.stack([np.full((H, W), 100, np.uint8),
+                               np.full((H, W), 100, np.uint8),
+                               rng.randint(0, 254, (H, W)).astype(np.uint8)],
+                              axis=-1)
+                entry["d"] = str(d / f"d_{i}.npy")
+                np.save(entry["d"], dd)
+                entry["s"] = str(d / f"s_{i}.npy")
+                np.save(entry["s"], rng.randint(0, 11, (H, W)).astype(np.uint8))
+            if domain == "kitti":
+                from climategan_tpu.data.palettes import CLASSES
+
+                colors = np.array(list(CLASSES["kitti"].values()), np.uint8)
+                seg = colors[rng.randint(0, len(colors), (H, W))]
+                entry["s"] = str(d / f"s_{i}.png")
+                cv2.imwrite(entry["s"], seg[..., ::-1])
+                depth = rng.randint(100, 8000, (H, W)).astype(np.uint16)
+                entry["d"] = str(d / f"d_{i}.png")
+                cv2.imwrite(entry["d"], depth)
+            samples.append(entry)
+        for mode in ("train", "val"):
+            lp = root / f"{mode}_{domain}.json"
+            lp.write_text(json.dumps(samples))
+            lists[mode][domain] = str(lp)
+    return lists
+
+
+def opts_pair(lists, **train):
+    """(JAX opts, port opts) of the tiny model over the dataset's lists."""
+    from climategan_tpu.utils.testing import tiny_opts
+
+    jopts = tiny_opts(DATA_SIZE)
+    jopts.data.files = {"base": "", "train": lists["train"],
+                        "val": lists["val"]}
+    jopts.data.loaders = {"batch_size": 2, "num_workers": 0}
+    jopts.data.transforms = TRANSFORMS
+    for k, v in train.items():
+        jopts.train[k] = v
+    return jopts, torch_load_opts(default=jopts.to_dict())
