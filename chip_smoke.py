@@ -105,9 +105,35 @@ Phases, any failure exits non-zero:
      the default batch (6 per domain) and its peak memory (information:
      steps/s, img/s and the loader's share over steps 2-8 and the whole
      epoch, the evaluation's and the save's seconds, the checkpoint's
-     bytes, the peak memory at batch 2 and 6, the launches over the phase).
+     bytes, the peak memory at batch 2 and 6, the launches over the phase);
+  9. the other generator configurations: the painter's cnc-3 packs of
+     phase 2 byte-equal to the (10 taps, hid_pad, 8) layout; the SPADE mask
+     decoder (gen.m.use_spade, the default gen.m.spade: cond_nc 15, latent
+     128, 3 blocks) at 640^2 bf16 batch 2 with all events: its 6 cnc-15
+     spade_cond calls (a dual and a norm_1 call per block, at 80^2, 160^2,
+     320^2) held to the plain version on the forward's own inputs, in f32
+     (TF32 off, 1e-4) and in bf16 (one ulp); its path's launch counts set
+     to 0 before a forward and read after: spade_cond 18 + 6, the others 1;
+     ms/batch and img/s in turns with the default config; the 6 calls'
+     device ms beside their bound, plain and library times; the card's f32
+     path against the CPU at 256^2 (mask 1e-3, every event within 1 LSB on
+     >= 99.9%); climategan_torch.bench on it (its FLOP count's plain
+     spade_cond calls equal the launches); `python -m
+     climategan_torch.apply_events -r <run dir>` with its opts.yaml on 2
+     photos: launches {24, 1, 1, 1, 1}, PNGs bit-equal to infer; its
+     training step at tiny_opts(32)'s sizes, card vs CPU (oneDNN off)
+     under hold_state, and at full width (640^2, 2 per domain, bf16
+     policy): finite losses, every mask-decoder parameter moved, p50 of 3
+     steps and peak memory; then one full-width forward each of the
+     MobileNetV2 backbone, DeepLab v2, depth classification, the painter
+     with z (drawn on the card), the final shortcut and batch-norm SPADEs:
+     launches {18, 1, 1, 1, 1}, outputs checked, ms/batch, and the card's
+     f32 path against the CPU at 256^2 (z fed to both) with the same bars;
+     `python -m climategan_torch.bench_train` on depth classification (its
+     bucket targets), its JSON line (value > 0).
 The last three lines are the card's name and power limit, the kernels JSON
-line, and {"ok": true, "device": {...}}.
+line (each kernel's launches per configuration's path; spade_cond's with
+the SPADE masker's numbers), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -245,6 +271,83 @@ def device_kernels(torch, fn) -> int:
         fn()
         torch.cuda.synchronize()
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def library_weights(k1, b1, branches):
+    """OIHW weights per branch for cuDNN, made before the timing."""
+    import torch
+
+    off, ws = 0, []
+    for kg, bg, kb, bb in branches:
+        hid = kg.shape[2]
+        ws.append((k1[..., off:off + hid].permute(3, 2, 0, 1).contiguous(),
+                   b1[off:off + hid].contiguous(),
+                   torch.cat([kg, kb], -1).permute(3, 2, 0, 1).contiguous(),
+                   torch.cat([bg, bb])))
+        off += hid
+    return ws
+
+
+def library_spade(seg, ws):
+    """cuDNN's two convolutions per branch: the library call of
+    spade_cond."""
+    import torch.nn.functional as F
+
+    xs_ = seg.permute(0, 3, 1, 2)
+    return [F.conv2d(F.relu(F.conv2d(xs_, w1, b1, padding=1)), w2, b2,
+                     padding=1) for w1, b1, w2, b2 in ws]
+
+
+def bound_spade(seg, k1, b1, branches):
+    """(operations ms, bytes ms, FLOP) of one call at the card's peaks."""
+    import torch
+
+    N, H, W, cnc = seg.shape
+    px = N * H * W
+    flops = sum(2 * 9 * px * (cnc * kg.shape[2] + kg.shape[2] * 2 * kg.shape[3])
+                for kg, _, _, _ in branches)
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 [seg, k1, b1] + [u for b in branches for u in b])
+    nbytes += sum(px * 2 * kg.shape[3] * seg.element_size()
+                  for kg, _, _, _ in branches)
+    peak = PEAK_BF16_FLOPS if seg.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    return flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3, flops
+
+
+def time_spade_calls(torch, calls):
+    """Per recorded spade_cond call (seg, pack): the kernel's, the plain
+    version's and the library call's device ms (cold L2) and the bound;
+    returns (summed row fields, per-call lines, operations ms, bytes ms)."""
+    from climategan_torch.kernels.spade_cond import (
+        spade_cond_packed,
+        spade_cond_plain,
+    )
+
+    t = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+         "bound_ms": 0.0}
+    ops_ms = bytes_ms = 0.0
+    lines = []
+    for seg, pack in calls:
+        ws = library_weights(*pack.args)
+        k = device_ms(torch, lambda: spade_cond_packed(seg, pack), reps=5)
+        pl = device_ms(torch, lambda: spade_cond_plain(seg, *pack.args), reps=5)
+        lib = device_ms(torch, lambda: library_spade(seg, ws), reps=5)
+        t_ops, t_bytes, flops = bound_spade(seg, *pack.args)
+        b = max(t_ops, t_bytes)
+        ops_ms += t_ops
+        bytes_ms += t_bytes
+        t["ms"] += k
+        t["call_ms"] += cuda_ms(torch, lambda: spade_cond_packed(seg, pack))
+        t["plain_ms"] += pl
+        t["library_ms"] += lib
+        t["bound_ms"] += b
+        lines.append(f"  spade_cond {tuple(seg.shape)} "
+                     f"nc={[c // 2 for c in pack.couts]}: kernel {k:.4f} "
+                     f"plain {pl:.4f} library {lib:.4f} bound {b:.4f} ms "
+                     f"({'operations' if t_ops >= t_bytes else 'bytes'}); "
+                     f"{flops / k / 1e9:.1f} TFLOP/s, {100 * b / k:.1f}% of "
+                     f"the bound")
+    return t, lines, ops_ms, bytes_ms
 
 
 def lsb_agreement(a, b):
@@ -884,6 +987,364 @@ def trainer_phase(torch, dev) -> dict:
     return launches
 
 
+# phase 9: the other generator configurations
+SPADE_MASKER = ["gen.m.use_spade=true"]  # the default gen.m.spade: cond_nc 15
+MASK_DECODER_CALLS = 6  # a dual and a norm_1 launch in each of 3 blocks
+CONFIG_RUNS = {
+    "mobilenet": ["gen.deeplabv3.backbone=mobilenet"],
+    "deeplabv2": ["gen.encoder.architecture=deeplabv2",
+                  "gen.s.architecture=deeplabv2"],
+    "classification": ["gen.d.architecture=base", "gen.d.classify.enable=true",
+                       "gen.m.use_dada=false", "gen.s.use_dada=false"],
+    "painter_z": ["gen.p.no_z=false"],
+    "final_shortcut": ["gen.p.use_final_shortcut=true"],
+    "batch_spade": ["gen.p.spade_param_free_norm=batch"],
+}
+
+
+def narrow_w1(k1, hids):
+    """The (10 taps, hid_pad, 8) w1 layout of cnc <= 8 as the parent
+    revision packed it, built apart from pack_spade_cond."""
+    import torch
+    import torch.nn.functional as F
+
+    cnc, out, off = k1.shape[2], [], 0
+    for h in hids:
+        w = k1[..., off:off + h].reshape(9, cnc, h).permute(0, 2, 1)
+        out.append(F.pad(w, (0, 8 - cnc, 0, -(-h // 32) * 32 - h, 0, 1))
+                   .reshape(-1))
+        off += h
+    return torch.cat(out)
+
+
+def card_vs_cpu(torch, opts, what, z_shape=None):
+    """The model of ``opts`` (seed 0) in f32 at SMALL^2 on the card and on
+    the CPU with the same draws (and the same z, where the painter takes
+    one): the smooth masks within atol 1e-3, every event within 1 LSB on
+    >= 99.9% of values."""
+    from climategan_torch.inference import build_infer_fn
+
+    xs = torch.rand(1, SMALL, SMALL, 3,
+                    generator=torch.Generator().manual_seed(2)) * 2 - 1
+    us = torch.rand(9, 9, generator=torch.Generator().manual_seed(3))
+    z = None
+    if z_shape is not None:
+        z = torch.randn(z_shape, generator=torch.Generator().manual_seed(4))
+    res = {}
+    for where in ("cuda", "cpu"):
+        _, inf = build_infer_fn(opts, dtype=torch.float32, bin_value=-1,
+                                device=where, seed=0)
+        res[where] = {k: v.cpu() for k, v in inf(
+            xs, uniform=us, g_value=G_VALUE,
+            z=None if z is None else z.to(where)).items()}
+    err = (res["cuda"]["mask"] - res["cpu"]["mask"]).abs().max().item()
+    agree = {k: lsb_agreement(res["cuda"][k], res["cpu"][k])
+             for k in ("flood", "wildfire", "smog")}
+    log(f"{what}, card vs CPU at {SMALL}^2 f32: mask max err {err:.3e}; "
+        + ", ".join(f"{k} within 1 LSB on {100 * a:.4f}% (max {m} LSB)"
+                    for k, (a, m) in agree.items()))
+    if not err <= 1e-3 or not all(a >= 0.999 for a, _ in agree.values()):
+        raise AssertionError(f"{what}: card and CPU disagree")
+
+
+def check_outputs(torch, out, what):
+    for key in ("flood", "wildfire", "smog"):
+        v = out[key]
+        if v.shape != (BATCH, SIZE, SIZE, 3) or v.dtype != torch.uint8:
+            raise AssertionError(f"{what} {key} {tuple(v.shape)} {v.dtype}")
+    m = out["mask"].float()
+    if m.shape != (BATCH, SIZE, SIZE, 1) or not torch.isfinite(m).all() \
+            or not (0 <= m.min() <= m.max() <= 1):
+        raise AssertionError(f"{what}: the mask is not finite in [0, 1]")
+
+
+def spade_step_tiny(torch, dev) -> None:
+    """The SPADE masker's g_step then d_step at tiny_opts(32)'s sizes, card
+    vs CPU in f32 from the same seed-0 state: every loss within 1e-4
+    relative, both models held by hold_state. The CPU side runs its convs
+    with oneDNN off: with oneDNN on, one pre-activation of the painter's
+    last leaky ReLU (final_spade's output at (1, 1, 27, 7)) comes out
+    +5.96e-7 where float64 gives -9.40e-5 and oneDNN off -6.53e-6, and that
+    one kink moves the G step's painter gradients up to 0.8% of a leaf's
+    largest, more than hold_state's 1e-3."""
+    import copy
+
+    from climategan_torch import bench_train
+    from climategan_torch.train_step import StepBuilder
+    from climategan_torch.utils.opts import load_opts
+    from climategan_torch.utils.step_check import (
+        TINY_OVERRIDES,
+        TINY_SIZE,
+        first_moments,
+        hold_state,
+    )
+
+    with torch.inference_mode(False), torch.enable_grad():
+        tiny = load_opts(path=TINY_OVERRIDES, commandline_opts=[
+            *SPADE_MASKER, "gen.m.spade.latent_dim=32"])
+        builder = StepBuilder(tiny)
+        cpu = builder.init_state(seed=0, device="cpu")
+        card = builder.state_for(copy.deepcopy(cpu.G).to(dev),
+                                 copy.deepcopy(cpu.D).to(dev))
+        batch_cpu = bench_train.synthetic_batch(2, TINY_SIZE, 32, "cpu")
+        batch_dev = {d: {k: v.to(dev) for k, v in b.items()}
+                     for d, b in batch_cpu.items()}
+        draws = ((0.05, False), (0.1, False))
+        for i, name in enumerate(("g_step", "d_step")):
+            if name == "d_step":
+                card.G.load_state_dict(cpu.G.state_dict())
+                card.D.load_state_dict(cpu.D.state_dict())
+            with torch.backends.mkldnn.flags(enabled=False):
+                _, m_cpu = getattr(builder, name)(cpu, batch_cpu,
+                                                  draws=draws[i])
+            _, m_dev = getattr(builder, name)(card, batch_dev, draws=draws[i])
+            for k, v in m_cpu.items():
+                a, b = float(m_dev[k]), float(v)
+                if abs(a - b) > 1e-4 * abs(b) + 1e-9:
+                    raise AssertionError(f"SPADE masker {name} {k}: card {a} "
+                                         f"cpu {b}")
+            net, lr = (("G", builder.g_lr) if name == "g_step"
+                       else ("D", builder.d_lr))
+            opt = f"{net.lower()}_opt"
+            got = getattr(card, net)
+            log(f"SPADE masker tiny {name}, card vs CPU (f32, oneDNN off): "
+                + hold_state(got, getattr(cpu, net).state_dict(), lr,
+                             first_moments(got, getattr(card, opt)),
+                             first_moments(getattr(cpu, net),
+                                           getattr(cpu, opt)),
+                             what=net))
+
+
+def configs_phase(torch, dev, x, uniform, infer_default, painter_calls) -> dict:
+    """Phase 9: the SPADE mask decoder and the other generator
+    configurations (see the module docstring). Returns the SPADE masker's
+    kernel numbers and every configuration's launches."""
+    import statistics
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import yaml
+
+    from climategan_torch import apply_events as cli
+    from climategan_torch import bench, bench_train, kernels
+    from climategan_torch.inference import build_infer_fn
+    from climategan_torch.kernels.spade_cond import (
+        spade_cond,
+        spade_cond_packed,
+        spade_cond_plain,
+    )
+    from climategan_torch.models import norms as norms_mod
+    from climategan_torch.models.generator import create_generator
+    from climategan_torch.train_step import StepBuilder
+    from climategan_torch.utils.opts import load_opts
+
+    t_phase = time.perf_counter()
+    g_dev = torch.tensor(G_VALUE, device=dev)
+    paths = {}
+
+    # ---- 9.1 the painter's cnc-3 packs keep their layout ----------------
+    for seg, pack in painter_calls:
+        if not torch.equal(pack.w1.view(torch.int16),
+                           narrow_w1(pack.args[0], pack.hids).view(torch.int16)):
+            raise AssertionError(f"spade_cond {tuple(seg.shape)}: the cnc-3 "
+                                 "pack's w1 is not the (10, hid_pad, 8) layout")
+    log(f"the painter's {len(painter_calls)} cnc-3 packs: w1 byte-equal to "
+        "the (10 taps, hid_pad, 8) layout")
+
+    # ---- 9.2 the SPADE masker: its cnc-15 calls vs plain ----------------
+    opts = load_opts(commandline_opts=SPADE_MASKER)
+    G, infer = build_infer_fn(opts, dtype=torch.bfloat16, device=dev, seed=0)
+    calls = []
+
+    def record(seg, pack):
+        calls.append((seg, pack))
+        return spade_cond_packed(seg, pack)
+
+    norms_mod.spade_cond_packed = record
+    try:
+        infer(x, uniform=uniform, g_value=g_dev)
+    finally:
+        norms_mod.spade_cond_packed = spade_cond_packed
+    torch.cuda.synchronize()
+    mask_calls = [(seg, pack) for seg, pack in calls if seg.shape[3] == 15]
+    if len(mask_calls) != MASK_DECODER_CALLS or \
+            len(calls) != 18 + MASK_DECODER_CALLS:
+        raise AssertionError(f"{len(calls)} spade_cond calls, "
+                             f"{len(mask_calls)} at cnc 15")
+    err = [0.0, 0.0]
+    for seg, pack in mask_calls:
+        a32 = (seg.float(), pack.args[0].float(), pack.args[1].float(),
+               [tuple(t.float() for t in b) for b in pack.args[2]])
+        plain = spade_cond_plain(*a32)
+        for got, want in zip(spade_cond(*a32), plain):
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+            err[0] = max(err[0], (got - want).abs().max().item())
+        for got, want in zip(spade_cond_packed(seg, pack), plain):
+            ulp = 2.0 ** (torch.floor(torch.log2(want.abs().max())).item() - 7)
+            e = (got.float() - want).abs().max().item()
+            if not e <= ulp:
+                raise AssertionError(f"spade_cond bf16 cnc 15 "
+                                     f"{tuple(seg.shape)}: max error {e} > "
+                                     f"one ulp {ulp}")
+            err[1] = max(err[1], e)
+    log(f"SPADE masker: {len(mask_calls)} cnc-15 spade_cond calls "
+        + ", ".join(f"{tuple(s.shape)} nc={[c // 2 for c in p.couts]}"
+                    for s, p in mask_calls)
+        + f"; vs plain max err f32 {err[0]:.3e} bf16 {err[1]:.3e}")
+
+    # ---- 9.3 its main path ----------------------------------------------
+    kernels.reset_launches()
+    out = infer(x, uniform=uniform, g_value=g_dev)
+    torch.cuda.synchronize()
+    paths["spade_masker"] = dict(kernels.launches)
+    want = {**MAIN_PATH_LAUNCHES, "spade_cond": 18 + MASK_DECODER_CALLS}
+    log(f"SPADE masker path launches: {paths['spade_masker']}")
+    if paths["spade_masker"] != want:
+        raise AssertionError(f"expected {want}")
+    check_outputs(torch, out, "SPADE masker")
+    fns = {"default": infer_default, "spade": infer}
+    turns = [cuda_ms(torch, lambda: fns[k](x, uniform=uniform, g_value=g_dev),
+                     reps=3) for k in ("default", "spade", "spade", "default")]
+    default_ms, spade_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    log(f"all events {SIZE}^2 bf16 batch {BATCH}, in turns (default, SPADE "
+        f"masker, SPADE masker, default): " + ", ".join(f"{t:.2f}" for t in turns)
+        + f" ms; default {default_ms:.2f} ms ({1e3 * BATCH / default_ms:.3f} "
+        f"img/s), SPADE masker {spade_ms:.2f} ms ({1e3 * BATCH / spade_ms:.3f} "
+        f"img/s)")
+    t_mask, lines, ops_ms, bytes_ms = time_spade_calls(torch, mask_calls)
+    for line in lines:
+        log(line)
+    log(f"the mask decoder's {len(mask_calls)} spade_cond calls: kernel "
+        f"{t_mask['ms']:.4f} ms, bound {t_mask['bound_ms']:.4f} ms "
+        f"({100 * t_mask['bound_ms'] / t_mask['ms']:.1f}%), plain "
+        f"{t_mask['plain_ms']:.4f} ms, library {t_mask['library_ms']:.4f} ms")
+    spade_row = {"launches": paths["spade_masker"]["spade_cond"],
+                 "mask_decoder_calls": len(mask_calls),
+                 "mask_decoder_max_abs_err": err[0],
+                 "mask_decoder_max_abs_err_bf16": err[1],
+                 **{f"mask_decoder_{k}": v for k, v in t_mask.items()},
+                 "mask_decoder_bound_by": ("operations" if ops_ms >= bytes_ms
+                                           else "bytes"),
+                 "forward_ms": spade_ms, "default_forward_ms": default_ms}
+    del calls, mask_calls
+    card_vs_cpu(torch, opts, "SPADE masker")
+    result = bench.run_bench(bench.parse_args(
+        ["--events", "all", "--batch", str(BATCH), "--iters", "3",
+         *SPADE_MASKER]))
+    log(json.dumps(result))
+
+    # ---- 9.4 served from a run dir ---------------------------------------
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    run_dir = root / "run"
+    (run_dir / "checkpoints").mkdir(parents=True)
+    with (run_dir / "opts.yaml").open("w") as f:
+        yaml.safe_dump(json.loads(json.dumps(opts)), f)
+    torch.save({"G": create_generator(opts, seed=0).state_dict()},
+               run_dir / "checkpoints" / "latest_ckpt.pth")
+    rng = np.random.default_rng(7)
+    (root / "imgs").mkdir()
+    for i in range(BATCH):
+        cv2.imwrite(str(root / "imgs" / f"photo_{i}.png"),
+                    rng.integers(0, 256, (720, 960, 3), np.uint8))
+    flags = ["-i", str(root / "imgs"), "-r", str(run_dir), "-b", str(BATCH),
+             "--half"]
+    kernels.reset_launches()
+    if cli.main([*flags, "-o", str(root / "out")]) != 0:
+        raise AssertionError("apply_events main() failed on the SPADE masker")
+    torch.cuda.synchronize()
+    if dict(kernels.launches) != want:
+        raise AssertionError(f"served launches {dict(kernels.launches)}")
+    args = cli.parse_args(flags)
+    served = cli.load_model(args)
+    photos = [(p.stem, cv2.imread(str(p), cv2.IMREAD_COLOR)[..., ::-1])
+              for p in cli.find_images(root / "imgs")]
+    batch = np.stack([cli.prep(img, args, True) for _, img in photos])
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    direct = served(torch.from_numpy(cli.pad_batch(batch, BATCH)), generator=gen)
+    for j, (name, _) in enumerate(photos):
+        for event in cli.WRITTEN_EVENTS:
+            png = cv2.imread(str(root / "out" / f"{name}_{event}.png"))
+            if png is None or not np.array_equal(
+                    png[..., ::-1], direct[event][j].cpu().numpy()):
+                raise AssertionError(f"{name}_{event}.png differs from infer")
+    log(f"apply_events -r <run dir with gen.m.use_spade>: {len(photos)} "
+        f"photos, launches {want}, every PNG bit-equal to infer")
+    del served, direct, G, infer
+    tmp.cleanup()
+
+    # ---- 9.5 its training step -------------------------------------------
+    spade_step_tiny(torch, dev)
+    with torch.inference_mode(False), torch.enable_grad():
+        builder = StepBuilder(opts)
+        state = builder.init_state(seed=0, device=dev)
+        batch = bench_train.synthetic_batch(BATCH, SIZE, 160, dev)
+        before = {n: p.detach().clone()
+                  for n, p in state.G.decoders["m"].named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        state, metrics = builder.train_step(state, batch)
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+        still = [n for n, p in state.G.decoders["m"].named_parameters()
+                 if torch.equal(p, before[n])]
+        if bad or still:
+            raise AssertionError(f"SPADE masker step: non-finite {bad}, "
+                                 f"mask decoder unchanged {still[:10]}")
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = builder.train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        p50 = statistics.median(times[1:])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"SPADE masker full-width training step ({SIZE}^2, batch {BATCH} "
+            f"per domain, bf16 policy): finite losses, every mask-decoder "
+            f"parameter moved; p50 {1e3 * p50:.2f} ms ({3 * BATCH / p50:.3f} "
+            f"img/s), steps " + ", ".join(f"{1e3 * t:.2f}" for t in times)
+            + f" ms; peak memory {peak:.2f} GiB")
+        spade_row.update(train_step_ms=1e3 * p50, train_peak_gib=peak)
+        del state, batch, before
+        torch.cuda.empty_cache()
+
+    # ---- 9.6 one full-width forward of each other configuration ----------
+    for name, overrides in CONFIG_RUNS.items():
+        copts = load_opts(commandline_opts=overrides)
+        Gc, inf = build_infer_fn(copts, dtype=torch.bfloat16, device=dev,
+                                 seed=0)
+        kernels.reset_launches()
+        out = inf(x, uniform=uniform, g_value=g_dev)
+        torch.cuda.synchronize()
+        paths[name] = dict(kernels.launches)
+        if paths[name] != MAIN_PATH_LAUNCHES:
+            raise AssertionError(f"{name}: launches {paths[name]}")
+        check_outputs(torch, out, name)
+        ms = cuda_ms(torch, lambda: inf(x, uniform=uniform, g_value=g_dev),
+                     reps=3)
+        log(f"{name}: {SIZE}^2 bf16 batch {BATCH} all events {ms:.2f} ms "
+            f"({1e3 * BATCH / ms:.3f} img/s), launches {paths[name]}")
+        z_shape = None
+        if not Gc.cfg.p_no_z:
+            s = SMALL // 2 ** Gc.cfg.p_spade_n_up
+            z_shape = (1, Gc.cfg.p_latent_dim, s, s)
+        del Gc, inf, out
+        card_vs_cpu(torch, copts, name, z_shape)
+
+    # ---- 9.7 bench_train on depth classification (bucket targets) --------
+    out = subprocess.run(
+        [sys.executable, "-m", "climategan_torch.bench_train", "--warmup", "1",
+         "--iters", "2", *CONFIG_RUNS["classification"]],
+        cwd=ROOT, check=True, capture_output=True, text=True)
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    if not line["value"] > 0 or not line["max_memory_allocated"]:
+        raise AssertionError(f"bench_train classification: {line}")
+    log("bench_train " + " ".join(CONFIG_RUNS["classification"]) + ": "
+        + json.dumps(line))
+    log(f"configurations phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"spade_cond": spade_row, "paths": paths}
+
+
 def main() -> int:
     import torch
 
@@ -1179,60 +1640,9 @@ def run(torch) -> int:
         f"values (max {worst} LSB)")
     log(profile_table(torch, lambda: (run_fire(), run_smog()), rows=25))
 
-    def library_weights(k1, b1, branches):
-        """OIHW weights per branch for cuDNN, made before the timing."""
-        off, ws = 0, []
-        for kg, bg, kb, bb in branches:
-            hid = kg.shape[2]
-            ws.append((k1[..., off:off + hid].permute(3, 2, 0, 1).contiguous(),
-                       b1[off:off + hid].contiguous(),
-                       torch.cat([kg, kb], -1).permute(3, 2, 0, 1).contiguous(),
-                       torch.cat([bg, bb])))
-            off += hid
-        return ws
-
-    def library_spade(seg, ws):
-        xs_ = seg.permute(0, 3, 1, 2)
-        return [F.conv2d(F.relu(F.conv2d(xs_, w1, b1, padding=1)), w2, b2,
-                         padding=1) for w1, b1, w2, b2 in ws]
-
-    def bound_spade(seg, k1, b1, branches):
-        """(operations ms, bytes ms, FLOP) of one call at the card's peaks."""
-        N, H, W, cnc = seg.shape
-        px = N * H * W
-        flops = sum(2 * 9 * px * (cnc * kg.shape[2] + kg.shape[2] * 2 * kg.shape[3])
-                    for kg, _, _, _ in branches)
-        nbytes = sum(t.numel() * t.element_size() for t in
-                     [seg, k1, b1] + [u for b in branches for u in b])
-        nbytes += sum(px * 2 * kg.shape[3] * seg.element_size()
-                      for kg, _, _, _ in branches)
-        peak = PEAK_BF16_FLOPS if seg.dtype == torch.bfloat16 else PEAK_F32_FLOPS
-        return flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3, flops
-
     rows = []
-    t_sc = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-            "bound_ms": 0.0}
-    ops_ms = bytes_ms = 0.0
-    per_call = []
-    for seg, pack in calls["spade_cond"]:
-        ws = library_weights(*pack.args)
-        k = device_ms(torch, lambda: spade_cond_packed(seg, pack), reps=5)
-        p = device_ms(torch, lambda: spade_cond_plain(seg, *pack.args), reps=5)
-        lib = device_ms(torch, lambda: library_spade(seg, ws), reps=5)
-        t_ops, t_bytes, flops = bound_spade(seg, *pack.args)
-        b = max(t_ops, t_bytes)
-        ops_ms += t_ops
-        bytes_ms += t_bytes
-        t_sc["ms"] += k
-        t_sc["call_ms"] += cuda_ms(torch, lambda: spade_cond_packed(seg, pack))
-        t_sc["plain_ms"] += p
-        t_sc["library_ms"] += lib
-        t_sc["bound_ms"] += b
-        per_call.append(f"  spade_cond {tuple(seg.shape)} "
-                        f"nc={[c // 2 for c in pack.couts]}: kernel {k:.4f} "
-                        f"plain {p:.4f} library {lib:.4f} bound {b:.4f} ms; "
-                        f"{flops / k / 1e9:.1f} TFLOP/s, {100 * b / k:.1f}% "
-                        f"of the bound")
+    t_sc, per_call, ops_ms, bytes_ms = time_spade_calls(torch,
+                                                        calls["spade_cond"])
     for line in per_call:
         log(line)
     log(f"spade_cond over the {len(per_call)} calls: kernel {t_sc['ms']:.4f} ms, "
@@ -1317,9 +1727,15 @@ def run(torch) -> int:
     with torch.inference_mode(False), torch.enable_grad():
         train_launches = training_phase(torch, dev)
         trainer_launches = trainer_phase(torch, dev)
+    configs = configs_phase(torch, dev, x, uniform, infer,
+                            calls["spade_cond"])
     for r in rows:
         r["train_launches"] = train_launches[r["name"]]
         r["trainer_launches"] = trainer_launches[r["name"]]
+        r["launches_by_path"] = {"default": r["launches"], **{
+            path: n[r["name"]] for path, n in configs["paths"].items()}}
+        if r["name"] == "spade_cond":
+            r["spade_masker"] = configs["spade_cond"]
 
     log(smi())
     log(json.dumps({"kernels": rows}))

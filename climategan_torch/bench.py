@@ -4,6 +4,11 @@ inference (Masker + Painter, and the events asked for) at 640x640 bf16,
 under the root ``bench.py``'s metric name.
 
     python -m climategan_torch.bench [--batch 32] [--events all] [--config 4]
+        [key=value ...]
+
+The model is the default opts' with the ``key=value`` overrides (another
+generator configuration, e.g. ``gen.m.use_spade=true``), random weights
+from seed 0.
 
 Prints ONE JSON line: ``metric``, ``value`` (images/s of the throughput
 phase: every forward enqueued, one synchronise at the end), ``unit``, the
@@ -61,6 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--spatial", action="store_true", help="not ported: " + SCALE_OUT)
     ap.add_argument("--hybrid", type=int, default=0, metavar="SP",
                     help="not ported: " + SCALE_OUT)
+    ap.add_argument("opts", nargs="*", metavar="key=value",
+                    help="overrides of the default opts")
     return ap
 
 
@@ -122,7 +129,8 @@ def run_bench(args) -> dict:
 
     device = resolve_device("cuda")
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    G, infer = build_infer_fn(load_opts(), dtype=dtype, device=device,
+    G, infer = build_infer_fn(load_opts(commandline_opts=args.opts),
+                              dtype=dtype, device=device,
                               ignore_event=IGNORE[args.events], seed=0)
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.rand(args.batch, args.size, args.size, 3, device=device,

@@ -4,11 +4,13 @@ update (the masker's ADVENT and the painter's GAN, ExtraAdam) at 640x640
 on synthetic batches, under the root ``bench_train.py``'s metric name.
 
     python -m climategan_torch.bench_train [--batch 2] [--size 640]
-        [--feat 160] [--iters 6] [--warmup 2]
+        [--feat 160] [--iters 6] [--warmup 2] [key=value ...]
 
-The default opts, with their bf16 policy; random weights from seed 0; the
-root bench's synthetic batch (uniform images, 0.01-1 depth targets and
-11-class seg labels at ``--feat``, random binary masks). Prints ONE JSON
+The default opts with the ``key=value`` overrides (another generator
+configuration), with their bf16 policy; random weights from seed 0; the
+root bench's synthetic batch (uniform images, 0.01-1 depth targets, or
+bucket indices under ``gen.d.classify.enable``, and 11-class seg labels at
+``--feat``, random binary masks). Prints ONE JSON
 line: ``metric``, ``value`` (images/s per card, counting the 3 x batch
 domain samples of a step once, from the p50 step time), the p50 and every
 step's ms (a synchronise after each step), ``max_memory_allocated``, the
@@ -50,6 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     for flag, why in NOT_PORTED.items():
         ap.add_argument(f"--{flag}", action="store_true",
                         help="not ported: " + why)
+    ap.add_argument("opts", nargs="*", metavar="key=value",
+                    help="overrides of the default opts")
     return ap
 
 
@@ -62,11 +66,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def synthetic_batch(n: int, size: int, feat: int,
-                    device) -> Dict[str, Dict[str, torch.Tensor]]:
+def synthetic_batch(n: int, size: int, feat: int, device,
+                    buckets: int = 0) -> Dict[str, Dict[str, torch.Tensor]]:
     """The root bench_train.py's batch, drawn as it draws it (numpy
     RandomState(0)), in the port's layout: NCHW images in [-1, 1],
-    binary masks, depth targets and int64 seg labels at ``feat``."""
+    binary masks, depth targets (with ``buckets``, int64 bucket indices
+    drawn after the rest) and int64 seg labels at ``feat``."""
     r = np.random.RandomState(0)
 
     def img(*s):
@@ -86,10 +91,13 @@ def synthetic_batch(n: int, size: int, feat: int,
         "rf": {"x": img(n, size, size, 3), "m": mk()},
     }
 
+    if buckets:
+        batch["s"]["d"] = r.randint(0, buckets, (n, feat, feat, 1))
+
     def tensor(k, a):
         t = torch.from_numpy(a)
         t = t.long() if k == "s" else t.permute(0, 3, 1, 2).contiguous()
-        return t.to(device)
+        return (t.long() if t.dtype != torch.float32 else t).to(device)
 
     return {dom: {k: tensor(k, a) for k, a in d.items()}
             for dom, d in batch.items()}
@@ -105,9 +113,10 @@ def run_bench(args) -> dict:
     from climategan_torch.utils.opts import load_opts
 
     device = resolve_device("cuda")
-    builder = StepBuilder(load_opts())
+    builder = StepBuilder(load_opts(commandline_opts=args.opts))
     state = builder.init_state(0, device)
-    batch = synthetic_batch(args.batch, args.size, args.feat, device)
+    batch = synthetic_batch(args.batch, args.size, args.feat, device,
+                            state.G.cfg.d_classify_buckets)
     torch.cuda.reset_peak_memory_stats(device)
     for _ in range(args.warmup):
         state, metrics = builder.train_step(state, batch)

@@ -40,16 +40,23 @@
 //
 // bf16 design (tensor cores), one block of 256 threads (two warpgroups) per
 // (image, 8x16 output tile, branch, group of NT-wide chunks of [gamma|beta]),
-// two blocks resident on each SM (about 110 KB of shared memory each):
-//   * the 12x20 conditioning window is loaded with zeros outside the image,
-//     16 bytes per pixel (cnc <= 8 channels, zero-padded) at a row pitch of
-//     24 pixels;
+// two blocks resident on each SM at CPT = 8 (about 110 KB of shared memory
+// each; at CPT = 16 a block takes about 131 KB at hid 128, so one fits):
+//   * the 12x20 conditioning window is loaded with zeros outside the image
+//     at a row pitch of 24 pixels, CPT channels per pixel (a template
+//     parameter): CPT = 8 for cnc <= 8 (the painter, cnc 3), 16 bytes per
+//     pixel; CPT = 16 for 8 < cnc <= 16 (the SPADE mask decoder, cnc 12 or
+//     15), 32 bytes per pixel as two planes of 16 (channels 0-7, then 8-15);
+//     channels past cnc are zero;
 //   * stage 1, wgmma m64n16k16 from shared memory, with no im2col: a 64-row
 //     m tile is 64 consecutive pixels of the activation window laid out 24
 //     wide, so 8 rows are 8 consecutive window pixels (one core matrix) and
-//     each tap's A is the window shifted by the tap; a k16 step pairs two
-//     taps, the leading byte offset being their distance. B is w1 (10 taps x
-//     hid_pad x 8 channels, tap 9 zero), brought in by one cp.async.bulk.
+//     each tap's A is the window shifted by the tap. At CPT = 8 a k16 step
+//     pairs two taps, the leading byte offset being their distance, and B is
+//     w1 as (10 taps, hid_pad, 8 channels), tap 9 zero (K = 80); at CPT = 16
+//     a k16 step is one tap, its two halves the two planes, and B is w1 as
+//     (9 taps, 2 halves, hid_pad, 8 channels) (K = 144). w1 is brought in by
+//     one cp.async.bulk.
 //     Warpgroup g computes half of the hidden channels over four m tiles.
 //     The epilogue adds b1, applies relu, zeroes the pixels outside the image
 //     and stores the 10x18 bf16 activation channel-chunk-major,
@@ -75,10 +82,11 @@
 //     recomputes stage 1: 256 x 80 x hid products against the 128 x 9 hid x
 //     NT of one chunk's stage 2 (44% at NT = 40, 22% at NT = 80).
 // The weights are packed once per module (kernels/spade_cond.py:pack_spade_cond):
-//   w1 per branch (10, hid_pad, 8), b1 f32 (sum hid_pad); per branch w2
+//   w1 per branch (10, hid_pad, 8) or (9, 2, hid_pad, 8), b1 f32 (sum
+//   hid_pad); per branch w2
 //   as (chunk, tap, ks, NT/8, 2, 8, 8): 8x8 core matrices, K-major, no
 //   swizzle, so each slab of the ring is contiguous; b2 f32 (chunks * NT).
-// Limits (the wrapper raises before launch): cnc <= 8, one hid per launch
+// Limits (the wrapper raises before launch): cnc <= 16, one hid per launch
 // padded to at most 128, shared memory within the block limit.
 
 #include <cuda_bf16.h>
@@ -283,7 +291,10 @@ constexpr int S1_TILES = (AH * WP + 63) / 64;    // stage-1 m tiles: 4
 // window pixels: every stage-1 row reads its tap's pixel, up to 2 rows and
 // 2 pixels on
 constexpr int W_PIX = (S1_TILES * 64 + 2 * WP + 2 + 7) / 8 * 8;
-constexpr int K1 = 10 * 8;  // stage-1 K: 9 taps (and a zero one) x 8 channels
+// stage-1 K per hidden channel: 9 taps (and a zero one) x 8 channels, or 9
+// taps x 16 channels
+template <int CPT>
+__host__ __device__ constexpr int k1_of() { return CPT == 8 ? 10 * 8 : 9 * 16; }
 
 struct TcBranch {
   int hid_off;   // first row of the branch in w1 and b1
@@ -446,10 +457,12 @@ struct Wgmma<80> {
 
 // NT: the chunk width; HS = hid_pad / 32, the k16 steps of one slab, fixed
 // at compile time so that the stage-2 products of a slab are one unrolled
-// run of wgmma
-template <int NT, int HS>
+// run of wgmma; CPT: conditioning channels per window pixel (8 or 16)
+template <int NT, int HS, int CPT>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 spade_cond_tc_kernel(const TcParams p) {
+  constexpr int K1 = k1_of<CPT>();
+  constexpr int PLANES = CPT / 8;
   // a slab of the ring is 40 hp / NT rows of K by NT (80 hp bytes): a whole
   // tap at NT = 40, half a tap at NT = 80; KPS k16 steps, SPC per chunk
   constexpr int KPS = HS * 80 / NT;
@@ -495,22 +508,27 @@ spade_cond_tc_kernel(const TcParams p) {
     }
   }
 
-  // conditioning window: 16 bytes per pixel (cnc channels, zero-padded to
-  // 8), pixel w = i * WP + j is image pixel (y0 - 2 + i, x0 - 2 + j) for
-  // i < SH, j < SW, zeros elsewhere and outside the image
+  // conditioning window: plane k holds channels 8k .. 8k + 7 (zero past
+  // cnc), 16 bytes per pixel; pixel w = i * WP + j is image pixel
+  // (y0 - 2 + i, x0 - 2 + j) for i < SH, j < SW, zeros elsewhere and
+  // outside the image
   for (int w = tid; w < W_PIX; w += TC_THREADS) {
     const int i = w / WP, j = w - (w / WP) * WP;
     const int y = y0 - 2 + i, x = x0 - 2 + j;
-    uint32_t v[4] = {0u, 0u, 0u, 0u};
+    uint32_t v[2 * CPT / 4] = {};
     if (i < SH && j < SW && y >= 0 && y < H && x >= 0 && x < W) {
       const __nv_bfloat16* src = p.seg + ((static_cast<size_t>(n) * H + y) * W + x) * cnc;
 #pragma unroll
-      for (int ci = 0; ci < 8; ++ci) {
+      for (int ci = 0; ci < CPT; ++ci) {
         if (ci < cnc) v[ci / 2] |= static_cast<uint32_t>(__bfloat16_as_ushort(src[ci]))
                                    << (16 * (ci % 2));
       }
     }
-    *reinterpret_cast<uint4*>(tc_smem + p.win_off + w * 16) = make_uint4(v[0], v[1], v[2], v[3]);
+#pragma unroll
+    for (int k = 0; k < PLANES; ++k) {
+      *reinterpret_cast<uint4*>(tc_smem + p.win_off + (k * W_PIX + w) * 16) =
+          make_uint4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+    }
   }
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   __syncthreads();
@@ -518,9 +536,11 @@ spade_cond_tc_kernel(const TcParams p) {
   // stage 1, wgmma m64n16k16 from shared memory, no im2col: row m of m tile
   // mt is activation pixel r = m' / WP, c = m' % WP (m' = 64 mt + m) of a
   // window WP pixels wide, so 8 consecutive rows are 8 consecutive window
-  // pixels, one core matrix; k16 step s pairs taps 2s and 2s + 1 (tap 9 has
-  // zero weights), each 8 channels at the window pixel shifted by the tap,
-  // the pair's distance being the leading byte offset. Warpgroup wg computes
+  // pixels, one core matrix. At CPT = 8, k16 step s pairs taps 2s and 2s + 1
+  // (tap 9 has zero weights), each 8 channels at the window pixel shifted by
+  // the tap, the pair's distance being the leading byte offset; at CPT = 16,
+  // k16 step s is tap s, its halves the two planes (W_PIX * 16 bytes
+  // apart). In both, B's k halves are hp * 16 bytes apart. Warpgroup wg computes
   // hidden channels [wg hp / 2, (wg + 1) hp / 2) as HS chunks of 16. The
   // epilogue keeps r < AH, c < AW: activation (q = r AW + c, ch) =
   // relu(sum + b1[ch]), 0 outside the image, as bf16 at byte
@@ -535,11 +555,16 @@ spade_cond_tc_kernel(const TcParams p) {
 #pragma unroll
     for (int j = 0; j < HS; ++j) {
 #pragma unroll
-      for (int s = 0; s < 5; ++s) {
-        const int t0 = 2 * s, t1 = s < 4 ? 2 * s + 1 : 2 * s;
-        const int sh0 = (t0 / 3) * WP + t0 % 3, sh1 = (t1 / 3) * WP + t1 % 3;
-        Wgmma<16>::fma(d1[j],
-                       desc(win + (mt * 64 + sh0) * 16, (sh1 - sh0) * 16 + (s < 4 ? 0 : 16), 128),
+      for (int s = 0; s < K1 / 16; ++s) {
+        uint64_t da;
+        if constexpr (CPT == 8) {
+          const int t0 = 2 * s, t1 = s < 4 ? 2 * s + 1 : 2 * s;
+          const int sh0 = (t0 / 3) * WP + t0 % 3, sh1 = (t1 / 3) * WP + t1 % 3;
+          da = desc(win + (mt * 64 + sh0) * 16, (sh1 - sh0) * 16 + (s < 4 ? 0 : 16), 128);
+        } else {
+          da = desc(win + (mt * 64 + (s / 3) * WP + s % 3) * 16, W_PIX * 16, 128);
+        }
+        Wgmma<16>::fma(d1[j], da,
                        desc(w1s + (2 * s * hp + (wg * HS + j) * 16) * 16, hp * 16, 128),
                        s);
       }
@@ -637,34 +662,34 @@ struct TcLayout {
   int act_off, win_off, w1_off, bar_off, total;
 };
 
-TcLayout tc_layout(int hid_pad_max, int nt) {
+TcLayout tc_layout(int hid_pad_max, int nt, int cpt) {
   TcLayout l;
   l.act_off = TC_STAGES * 80 * hid_pad_max;  // TC_STAGES slabs of 80 hp bytes
   l.win_off = l.act_off + (hid_pad_max / 8) * P_ACT * 16;
-  l.w1_off = l.win_off + W_PIX * 16;
-  l.bar_off = l.w1_off + hid_pad_max * K1 * 2;
+  l.w1_off = l.win_off + W_PIX * 16 * (cpt / 8);
+  l.bar_off = l.w1_off + hid_pad_max * (cpt == 8 ? k1_of<8>() : k1_of<16>()) * 2;
   l.total = l.bar_off + (TC_STAGES + 1) * 8;
   return l;
 }
 
-template <int NT, int HS>
+template <int NT, int HS, int CPT>
 int launch_tc(const TcParams& p, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(spade_cond_tc_kernel<NT, HS>,
+  cudaError_t err = cudaFuncSetAttribute(spade_cond_tc_kernel<NT, HS, CPT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.W + TW - 1) / TW, (p.H + TH - 1) / TH, p.N * p.groups);
-  spade_cond_tc_kernel<NT, HS><<<grid, TC_THREADS, smem, stream>>>(p);
+  spade_cond_tc_kernel<NT, HS, CPT><<<grid, TC_THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NT>
+template <int NT, int CPT>
 int launch_tc_hs(const TcParams& p, int hs, int smem, cudaStream_t stream) {
   switch (hs) {
-    case 1: return launch_tc<NT, 1>(p, smem, stream);
-    case 2: return launch_tc<NT, 2>(p, smem, stream);
-    case 3: return launch_tc<NT, 3>(p, smem, stream);
-    case 4: return launch_tc<NT, 4>(p, smem, stream);
+    case 1: return launch_tc<NT, 1, CPT>(p, smem, stream);
+    case 2: return launch_tc<NT, 2, CPT>(p, smem, stream);
+    case 3: return launch_tc<NT, 3, CPT>(p, smem, stream);
+    case 4: return launch_tc<NT, 4, CPT>(p, smem, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -735,8 +760,8 @@ int spade_cond_launch(const void* seg, const void* k1,
 }
 
 // Shared memory one block of the bf16 kernel needs, in bytes.
-long long spade_cond_tc_smem_bytes(int hid_pad_max, int nt) {
-  return tc_layout(hid_pad_max, nt).total;
+long long spade_cond_tc_smem_bytes(int hid_pad_max, int nt, int cnc) {
+  return tc_layout(hid_pad_max, nt, cnc <= 8 ? 8 : 16).total;
 }
 
 // The bf16 tensor-core kernel on packed weights (see the notes at the top).
@@ -749,7 +774,7 @@ int spade_cond_tc_launch(const void* seg, const void* w1, const void* b1,
                          void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (nb < 1 || nb > MAX_BRANCHES || group < 1 || (nt != 40 && nt != 80) ||
-      cnc < 1 || cnc > 8) {
+      cnc < 1 || cnc > 16) {
     return bad;
   }
   TcParams p;
@@ -783,15 +808,20 @@ int spade_cond_tc_launch(const void* seg, const void* w1, const void* b1,
   if (static_cast<long long>(N) * p.groups > 65535 || (H + TH - 1) / TH > 65535) {
     return bad;
   }
-  const TcLayout l = tc_layout(hid_max, nt);
+  const int cpt = cnc <= 8 ? 8 : 16;
+  const TcLayout l = tc_layout(hid_max, nt, cpt);
   p.act_off = l.act_off;
   p.win_off = l.win_off;
   p.w1_off = l.w1_off;
   p.bar_off = l.bar_off;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int hs = hid_max / 32;  // one hid_pad of at most 128 for all branches
-  return nt == 40 ? launch_tc_hs<40>(p, hs, l.total, s)
-                  : launch_tc_hs<80>(p, hs, l.total, s);
+  if (cpt == 8) {
+    return nt == 40 ? launch_tc_hs<40, 8>(p, hs, l.total, s)
+                    : launch_tc_hs<80, 8>(p, hs, l.total, s);
+  }
+  return nt == 40 ? launch_tc_hs<40, 16>(p, hs, l.total, s)
+                  : launch_tc_hs<80, 16>(p, hs, l.total, s);
 }
 
 const char* spade_cond_error_string(int err) {

@@ -47,7 +47,7 @@ def build_infer_fn(
     seed: int = 0,
 ) -> Tuple[OmniGenerator, callable]:
     """Returns ``(G, infer)``;
-    ``infer(x, uniform=None, generator=None, g_value=None)``.
+    ``infer(x, uniform=None, generator=None, g_value=None, z=None)``.
 
     G is built in f32 with weights from ``state_dict`` (reference key
     layout, loaded strictly; spectral kernels baked from the loaded values)
@@ -57,7 +57,11 @@ def build_infer_fn(
     ``uniform`` is the (9, 9) Perlin draw tensor (see ops/perlin.py);
     without it the draws come from ``generator``. ``g_value`` is the
     wildfire filter's green value (see events/fire.py); without it, it is
-    drawn from ``generator``. The events' knobs come from ``opts.events``.
+    drawn from ``generator``. ``z`` is the painter's NCHW latent where the
+    painter takes one (``gen.p.no_z: false``); without it, it is drawn
+    from ``generator`` or, without one, from the device's generator. The
+    smog takes ``G.depth_map`` of the depth head: a classification head's
+    bucket argmax, normalized. The events' knobs come from ``opts.events``.
     """
     device = resolve_device(device)
     fire_opts = opts.events.get("fire", {}) or {}
@@ -75,7 +79,7 @@ def build_infer_fn(
     @torch.inference_mode()
     def infer(x, uniform: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None,
-              g_value=None):
+              g_value=None, z: Optional[torch.Tensor] = None):
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
         # NCHW-contiguous, not the channels_last view of the NHWC input: on
@@ -89,9 +93,9 @@ def build_infer_fn(
             mb = (m > bin_value).to(x.dtype) if bin_value >= 0 else m
             if cloudy:
                 flood = G.paint_cloudy(mb, x, s, uniform=uniform,
-                                       generator=generator)
+                                       generator=generator, z=z)
             else:
-                flood = G.paint(mb, x)
+                flood = G.paint(mb, x, z=z, generator=generator)
             out["flood"] = flood.permute(0, 2, 3, 1)
         if "wildfire" not in ignore_event:
             out["wildfire"] = add_fire(
@@ -103,7 +107,7 @@ def build_infer_fn(
             ).permute(0, 2, 3, 1)
         if "smog" not in ignore_event:
             out["smog"] = add_smog(
-                x.float(), d.float(),
+                x.float(), G.depth_map(d).float(),
                 airlight=float(smog_opts.get("airlight", 0.76)),
                 beta=float(smog_opts.get("beta", 2.0)),
                 vr=float(smog_opts.get("vr", 1.0)),

@@ -45,7 +45,18 @@ FMA_CHUNK = 64        # CHUNK in csrc/spade_cond.cu: the f32 kernel's N step
 TILE = (8, 16)        # output tile of both kernels (TH, TW)
 MIN_BLOCKS = 2 * 132  # the bf16 kernel: two resident blocks on each SM
 MAX_BRANCHES = 4
-K1 = 80               # K1 in csrc/spade_cond.cu: stage 1's 10 taps x 8 channels
+MAX_CNC = 16          # the bf16 kernel's widest window pixel (CPT in csrc)
+
+
+def taps_channels(cnc: int) -> Tuple[int, int]:
+    """(taps, channels per tap) of the bf16 kernel's stage 1 for ``cnc``
+    conditioning channels: (10, 8) up to 8, two taps a k16 step with a zero
+    tenth; (9, 16) up to 16, one tap a step. K1 = taps x channels (80 or
+    144), as ``k1_of`` in csrc/spade_cond.cu."""
+    if cnc > MAX_CNC:
+        raise ValueError(f"spade_cond: the bf16 kernel takes cnc <= {MAX_CNC}, "
+                         f"got {cnc}")
+    return (10, 8) if cnc <= 8 else (9, 16)
 
 
 def spade_cond_plain(seg: torch.Tensor, k1: torch.Tensor, b1: torch.Tensor,
@@ -98,9 +109,10 @@ class SpadePack:
 
     ``args`` keeps (k1, b1, branches) in the JAX layout (views of the
     module's parameters where it can), for the plain version and checks.
-    route "wgmma" (bf16 kernel): w1 flat, per branch (10, hid_pad, 8):
-    element [tap, c, ci] is k1[tap // 3, tap % 3, ci, c], zero for tap 9,
-    ci >= cnc and c >= hid; b1 f32 (sum hid_pad,); per branch w2 (chunks, 9, hid_pad / 16,
+    route "wgmma" (bf16 kernel): w1 flat, per branch (taps, cpt / 8,
+    hid_pad, 8) with (taps, cpt) = ``taps_channels(cnc)``: element [tap, h,
+    c, ci] is k1[tap // 3, tap % 3, 8 h + ci, c], zero for tap 9, channels
+    >= cnc and c >= hid; b1 f32 (sum hid_pad,); per branch w2 (chunks, 9, hid_pad / 16,
     nt / 8, 2, 8, 8): element [c, tap, ks, g, h, r, e] is [kg|kb][tap,
     16 ks + 8 h + e, nt c + 8 g + r], zero-padded; b2 f32 (chunks * nt,).
     route "fma" (f32 kernel): w1 = k1 and b1 contiguous; per branch w2 =
@@ -156,8 +168,8 @@ def pack_spade_cond(k1: torch.Tensor, b1: torch.Tensor,
                     branches: Sequence[Branch], route: str = None) -> SpadePack:
     """Packs the weights of one call for a kernel: route "wgmma" (default
     for bf16) or "fma" (default for f32). Zero-padding hid to a multiple of
-    32 and each tap's cnc channels to 8 is exact; a "wgmma" pack takes
-    cnc <= 8, and what the kernel cannot hold raises at launch."""
+    32 and each tap's cnc channels to 8 or 16 is exact; a "wgmma" pack
+    takes cnc <= 16, and what the kernel cannot hold raises at launch."""
     route = route or ("wgmma" if k1.dtype == torch.bfloat16 else "fma")
     cnc = k1.shape[2]
     hids = [kg.shape[2] for kg, _, _, _ in branches]
@@ -173,15 +185,15 @@ def pack_spade_cond(k1: torch.Tensor, b1: torch.Tensor,
                          hids)
     if route != "wgmma":
         raise ValueError(f"unknown spade_cond route {route!r}")
-    if cnc > 8:
-        raise ValueError(f"spade_cond: the bf16 kernel takes cnc <= 8, got {cnc}")
+    taps, cpt = taps_channels(cnc)
     nt = chunk_width(couts)
     hid_pads = [_up(h, 32) for h in hids]
     chunks = tuple(-(-c // nt) for c in couts)
     w1s, b1s, off = [], [], 0
     for h, hp in zip(hids, hid_pads):
-        w = k1[..., off:off + h].reshape(9, cnc, h).permute(0, 2, 1)
-        w1s.append(F.pad(w, (0, 8 - cnc, 0, hp - h, 0, 1)).reshape(-1))
+        w = F.pad(k1[..., off:off + h].reshape(9, cnc, h),
+                  (0, hp - h, 0, cpt - cnc, 0, taps - 9))
+        w1s.append(w.reshape(taps, cpt // 8, 8, hp).transpose(2, 3).reshape(-1))
         b1s.append(F.pad(b1[off:off + h].float(), (0, hp - h)))
         off += h
     packed_w2, packed_b2 = [], []
@@ -196,7 +208,8 @@ def pack_spade_cond(k1: torch.Tensor, b1: torch.Tensor,
 
 def spade_cond_packed_plain(seg: torch.Tensor, pack: SpadePack) -> List[torch.Tensor]:
     """The plain version of ``spade_cond_packed``. A "wgmma" pack is read as
-    the kernel reads it: the 9 taps' 8-channel windows times the packed w1,
+    the kernel reads it: the 9 taps' 8- or 16-channel windows times the
+    packed w1,
     the activation rounded to seg's dtype, then per tap a product with the
     unpacked w2, summed in f32; an "fma" pack is the f32 kernel's layout
     (``[kg|kb]`` padded), so its plain version is ``spade_cond_plain`` on the
@@ -205,14 +218,16 @@ def spade_cond_packed_plain(seg: torch.Tensor, pack: SpadePack) -> List[torch.Te
         return spade_cond_plain(seg, *pack.args)
     N, H, W, cnc = seg.shape
     dt = seg.dtype
-    x = F.pad(seg.float(), (0, 8 - cnc, 1, 1, 1, 1))
+    taps, cpt = taps_channels(cnc)
+    k1 = taps * cpt
+    x = F.pad(seg.float(), (0, cpt - cnc, 1, 1, 1, 1))
     cols = torch.cat([x[:, ky:ky + H, kx:kx + W] for ky in range(3)
                       for kx in range(3)], dim=-1)
-    cols = F.pad(cols, (0, K1 - 9 * 8))
+    cols = F.pad(cols, (0, k1 - 9 * cpt))
     outs, off = [], 0
     for w2, b2, hp, cout in zip(pack.w2, pack.b2, pack.hid_pads, pack.couts):
-        w1 = pack.w1[off * K1:(off + hp) * K1].float()
-        w1 = w1.reshape(10, hp, 8).transpose(0, 1).reshape(hp, K1)
+        w1 = pack.w1[off * k1:(off + hp) * k1].float()
+        w1 = w1.reshape(taps, cpt // 8, hp, 8).permute(2, 0, 1, 3).reshape(hp, k1)
         act = torch.relu(cols @ w1.t() + pack.b1[off:off + hp]).to(dt).float()
         a = F.pad(act, (0, 0, 1, 1, 1, 1))
         w = w2.float().permute(1, 2, 4, 6, 0, 3, 5).reshape(9, hp, -1)
@@ -238,7 +253,7 @@ def _lib():
         lib.spade_cond_tc_launch.argtypes = [
             p, p, p, i, i, i, i, i, i, ip, ip, ip, pp, pp, pp, i, p]
         lib.spade_cond_tc_launch.restype = i
-        lib.spade_cond_tc_smem_bytes.argtypes = [i, i]
+        lib.spade_cond_tc_smem_bytes.argtypes = [i, i, i]
         lib.spade_cond_tc_smem_bytes.restype = ctypes.c_longlong
         lib.spade_cond_error_string.argtypes = [i]
         lib.spade_cond_error_string.restype = ctypes.c_char_p
@@ -270,7 +285,7 @@ def spade_cond_packed(seg: torch.Tensor, pack: SpadePack) -> List[torch.Tensor]:
         if len(set(pack.hid_pads)) != 1 or pack.hid_pads[0] > 128:
             raise ValueError("spade_cond: the bf16 kernel takes branches of one "
                              f"hid padded to 32, at most 128; got {pack.hids}")
-        smem = lib.spade_cond_tc_smem_bytes(max(pack.hid_pads), pack.nt)
+        smem = lib.spade_cond_tc_smem_bytes(max(pack.hid_pads), pack.nt, cnc)
     else:
         smem = lib.spade_cond_smem_bytes(max(pack.hids), cnc)
     if smem > _SMEM_LIMIT:

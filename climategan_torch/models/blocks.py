@@ -18,6 +18,7 @@ from climategan_torch.models.norms import (
     SNConv,
     SPADE,
     dual_spade,
+    instance_norm,
     nhwc,
     pack_dual,
     pack_fits,
@@ -85,10 +86,11 @@ class Conv2dBlock(nn.Module):
                            spectral=use_spectral)
         if post_norm == "batch":
             self.norm = BatchNorm2d(output_dim)
-        elif post_norm == "none":
+        elif post_norm in ("instance", "none"):
             self.norm = None
         else:
             raise NotImplementedError(f"Conv2dBlock norm {post_norm!r}")
+        self.instance = post_norm == "instance"
 
     def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
         if self.padding:
@@ -97,6 +99,8 @@ class Conv2dBlock(nn.Module):
         x = self.conv(x, update_sn)
         if self.norm is not None:
             x = self.norm(x)
+        elif self.instance:
+            x = instance_norm(x)
         return activation(x, self.activation)
 
 
@@ -181,25 +185,36 @@ class BaseDecoder(nn.Module):
 
 
 class SPADEResnetBlock(nn.Module):
-    """SPADE residual block with instance-norm SPADEs; in eval mode, with
-    a learned shortcut, norm_s and norm_0 run as one dual ``spade_cond``
-    launch. Packs are made on the first eval forward (or by
-    ``pack_weights``) and again when the weights have moved to another
-    device or dtype; a mode switch and a weight load drop them."""
+    """SPADE residual block; its SPADEs normalize with an instance norm or
+    (``param_free_norm="batch"``) each with its own batch norm. In eval
+    mode, with a learned shortcut, norm_s and norm_0 run as one dual
+    ``spade_cond`` launch, whatever the norm: they read the same
+    conditioning input (the JAX package fuses the two only for instance
+    norms; the values are the same). Packs are made on the first eval
+    forward (or by ``pack_weights``) and again when the weights have moved
+    to another device or dtype; a mode switch and a weight load drop them.
+    ``last_activation="lrelu"`` ends the block with a leaky relu (the SPADE
+    mask decoder's blocks)."""
 
     def __init__(self, fin: int, fout: int, cond_nc: int,
-                 use_spectral_norm: bool = True):
+                 use_spectral_norm: bool = True,
+                 param_free_norm: str = "instance",
+                 last_activation: Optional[str] = None):
         super().__init__()
+        if last_activation not in (None, "lrelu"):
+            raise NotImplementedError(
+                f"Unsupported last_activation: {last_activation}")
         fmiddle = min(fin, fout)
         self.learned_shortcut = fin != fout
-        sn = use_spectral_norm
+        self.last_activation = last_activation
+        sn, pfn = use_spectral_norm, param_free_norm
         self.conv_0 = SNConv(fin, fmiddle, 3, padding=1, spectral=sn)
         self.conv_1 = SNConv(fmiddle, fout, 3, padding=1, spectral=sn)
         if self.learned_shortcut:
             self.conv_s = SNConv(fin, fout, 1, bias=False, spectral=sn)
-            self.norm_s = SPADE(fin, cond_nc)
-        self.norm_0 = SPADE(fin, cond_nc)
-        self.norm_1 = SPADE(fmiddle, cond_nc)
+            self.norm_s = SPADE(fin, cond_nc, param_free_norm=pfn)
+        self.norm_0 = SPADE(fin, cond_nc, param_free_norm=pfn)
+        self.norm_1 = SPADE(fmiddle, cond_nc, param_free_norm=pfn)
         self.shortcut_pack = None
 
     def pack_weights(self) -> None:
@@ -244,7 +259,8 @@ class SPADEResnetBlock(nn.Module):
             x_s, dx = x, norm(self.norm_0, x)
         dx = self.conv_0(lrelu(dx), update_sn)
         dx = self.conv_1(lrelu(norm(self.norm_1, dx)), update_sn)
-        return x_s + dx
+        out = x_s + dx
+        return lrelu(out) if self.last_activation == "lrelu" else out
 
 
 def pack_spade_weights(model: nn.Module) -> None:

@@ -5,7 +5,9 @@ Two reference quirks are kept for checkpoint parity:
     (H+2, W+2);
   * the decoder is called as ``decoder(aspp_out, z_low)``: ``conv_low``
     runs on the ASPP features and z_low is resized to their grid.
-``ConvBN`` (the reference's ConvBNReLU) applies no ReLU.
+``ConvBN`` (the reference's ConvBNReLU) applies no ReLU. With the
+mobilenet backbone the decoder is the separable ``head``
+(``models/mobilenet.DeepLabHead``) on the 320-channel features.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
+from climategan_torch.models.mobilenet import DeepLabHead
 from climategan_torch.models.norms import BatchNorm2d
 from climategan_torch.ops.interpolate import resize
 
@@ -64,16 +67,23 @@ class DeepLabDecoder(nn.Module):
 
 class DeepLabV3Decoder(nn.Module):
     def __init__(self, num_classes: int = 11, use_dada: bool = True,
-                 target_size: Tuple[int, int] = (640, 640)):
+                 target_size: Tuple[int, int] = (640, 640),
+                 backbone: str = "resnet"):
         super().__init__()
         self.use_dada = use_dada
         self.target_size = tuple(target_size)
-        self.aspp = ASPP()
-        self.decoder = DeepLabDecoder(num_classes)
+        if backbone == "resnet":
+            self.aspp = ASPP()
+            self.decoder = DeepLabDecoder(num_classes)
+        else:
+            self.head = DeepLabHead(320, num_classes)
 
     def forward(self, z, z_depth=None):
         z_high, z_low = z
         if z_depth is not None and self.use_dada:
             z_high = z_high * z_depth
-        s = self.decoder(self.aspp(z_high), z_low)
+        if hasattr(self, "head"):
+            s = self.head(z_high)
+        else:
+            s = self.decoder(self.aspp(z_high), z_low)
         return resize(s, self.target_size, "bilinear", align_corners=True)

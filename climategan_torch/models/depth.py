@@ -1,14 +1,27 @@
-"""DADA depth decoder (NCHW): 1x1 2048->512, 3x3 512->512, 1x1 512->128,
-the ``dec4`` 1x1 128->2048 feature-fusion map, an x2 nearest upsample head,
-the channel mean, and the bicubic-384 -> nearest-target chain when the size
-differs. Keys: ``enc4_{1,2,3}``, ``dec4``, ``upsample.{1,2}``.
+"""Depth decoders (NCHW).
+
+* ``DADADepthDecoder`` (``gen.d.architecture: dada``, the default): 1x1
+  2048->512, 3x3 512->512, 1x1 512->128, the ``dec4`` 1x1 128->2048
+  feature-fusion map, an x2 nearest upsample head, the channel mean, and
+  the bicubic-384 -> nearest-target chain when the size differs. Keys:
+  ``enc4_{1,2,3}``, ``dec4``, ``upsample.{1,2}``.
+* ``BaseDepthDecoder`` (``gen.d.architecture: base``): a BaseDecoder with
+  batch norms in regression (one channel) or bucket classification
+  (``classify_buckets`` logit channels), bilinear (align_corners) to the
+  target size; no feature-fusion map. Keys: the BaseDecoder's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 
-from climategan_torch.models.blocks import Conv2dBlock, UpsampleNearest
+from typing import Tuple
+
+from climategan_torch.models.blocks import (
+    BaseDecoder,
+    Conv2dBlock,
+    UpsampleNearest,
+)
 from climategan_torch.ops.interpolate import resize
 
 
@@ -49,3 +62,20 @@ class DADADepthDecoder(nn.Module):
             depth = resize(depth, (self.target_size, self.target_size),
                            "nearest")
         return depth, z_depth
+
+
+class BaseDepthDecoder(BaseDecoder):
+    def __init__(self, input_dim: int = 2048, classify_buckets: int = 0,
+                 upsample_featuremaps: bool = True,
+                 target_size: Tuple[int, int] = (160, 160)):
+        super().__init__(
+            n_upsample=1 if upsample_featuremaps else 0, n_res=1,
+            input_dim=input_dim, proj_dim=32,
+            output_dim=classify_buckets if classify_buckets > 0 else 1,
+            norm="batch", activ="lrelu", pad_type="reflect",
+            output_activ="none")
+        self.target_size = tuple(target_size)
+
+    def forward(self, z, update_sn: bool = False):
+        d = super().forward(z, None, update_sn)
+        return resize(d, self.target_size, "bilinear", align_corners=True), None

@@ -7,7 +7,8 @@ dict loads with plain ``load_state_dict``:
     ``module.weight_u`` / ``module.weight_v``; a plain conv ``weight`` /
     ``bias``;
   * ``BatchNorm2d`` keeps nn.BatchNorm2d's keys;
-  * ``SPADE`` keeps ``mlp_shared.0`` / ``mlp_gamma`` / ``mlp_beta``.
+  * ``SPADE`` keeps ``mlp_shared.0`` / ``mlp_gamma`` / ``mlp_beta`` (and
+    ``param_free_norm``'s running statistics with a batch norm).
 
 In eval mode a spectral conv runs a baked kernel and SPADE runs the
 ``spade_cond`` kernel on packed weights. In train mode they compute as the
@@ -188,8 +189,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 unit(mod.weight_u)
                 unit(mod.weight_v)
         elif isinstance(mod, nn.BatchNorm2d):
-            fill(mod.weight, 0.8, 1.2)
-            fill(mod.bias, -0.1, 0.1)
+            if mod.affine:
+                fill(mod.weight, 0.8, 1.2)
+                fill(mod.bias, -0.1, 0.1)
             fill(mod.running_mean, -0.1, 0.1)
             fill(mod.running_var, 0.8, 1.2)
     for mod in model.modules():
@@ -213,8 +215,11 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class SPADE(nn.Module):
-    """Spatially-adaptive instance norm: ``instance_norm(x) * (1 + gamma) +
-    beta``, [gamma|beta] from a conv MLP over the conditioning map.
+    """Spatially-adaptive norm: ``normalize(x) * (1 + gamma) + beta``,
+    [gamma|beta] from a conv MLP over the conditioning map; ``normalize``
+    is an instance norm or (``param_free_norm="batch"``) a batch norm
+    without affine parameters, whose running variance takes the biased
+    batch variance in train mode, as flax's does.
 
     Eval mode (``forward``, NHWC ``seg``): the ``spade_cond`` kernel, on
     weights packed by ``pack_weights`` (``pack_spade_weights`` packs a
@@ -224,8 +229,13 @@ class SPADE(nn.Module):
     convs of ``mlp_shared``, ``mlp_gamma`` and ``mlp_beta`` on the live
     parameters."""
 
-    def __init__(self, norm_nc: int, cond_nc: int, nhidden: int = 128):
+    def __init__(self, norm_nc: int, cond_nc: int, nhidden: int = 128,
+                 param_free_norm: str = "instance"):
         super().__init__()
+        if param_free_norm not in ("instance", "batch"):
+            raise ValueError(f"Unknown SPADE param-free norm {param_free_norm}")
+        self.param_free_norm = (BatchNorm2d(norm_nc, affine=False)
+                                if param_free_norm == "batch" else None)
         self.mlp_shared = nn.Sequential(
             nn.Conv2d(cond_nc, nhidden, 3, padding=1), nn.ReLU())
         self.mlp_gamma = nn.Conv2d(nhidden, norm_nc, 3, padding=1)
@@ -263,6 +273,11 @@ class SPADE(nn.Module):
         super()._load_from_state_dict(*args, **kwargs)
         self.pack = None
 
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
+        if self.param_free_norm is None:
+            return instance_norm(x)
+        return self.param_free_norm(x)
+
     @staticmethod
     def modulate(normalized: torch.Tensor, gb: torch.Tensor) -> torch.Tensor:
         nc = gb.shape[-1] // 2
@@ -273,16 +288,16 @@ class SPADE(nn.Module):
     def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
         """``seg``: NHWC conditioning map already at x's spatial size."""
         (gb,) = spade_cond_packed(seg, self.current_pack())
-        return self.modulate(instance_norm(x), gb)
+        return self.modulate(self.normalize(x), gb)
 
     def forward_train(self, x: torch.Tensor, seg: torch.Tensor,
                       normalized: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
         """``seg``: NCHW conditioning map already at x's spatial size;
-        ``normalized``: ``instance_norm(x)`` when the caller has it."""
+        ``normalized``: ``self.normalize(x)`` when the caller has it."""
         actv = self.mlp_shared(seg)
         if normalized is None:
-            normalized = instance_norm(x)
+            normalized = self.normalize(x)
         return normalized * (1.0 + self.mlp_gamma(actv)) + self.mlp_beta(actv)
 
 
@@ -312,14 +327,16 @@ def pack_dual(norm_a: SPADE, norm_b: SPADE) -> SpadePack:
 def dual_spade(x: torch.Tensor, seg: torch.Tensor, norm_a: SPADE,
                norm_b: SPADE, pack: Optional[SpadePack] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Two SPADEs over the same (x, seg) with one instance norm (a SPADE
-    block's norm_s and norm_0). Eval mode: one ``spade_cond`` launch with
-    the two mlp_shared convs concatenated, from ``pack`` (``pack_dual``) or
-    packed for this call, on an NHWC ``seg``. Train mode: each SPADE's
-    ``forward_train`` on an NCHW ``seg``."""
-    normalized = instance_norm(x)
+    """Two SPADEs over the same (x, seg) (a SPADE block's norm_s and
+    norm_0): one instance norm, or each its own batch norm. Eval mode: one
+    ``spade_cond`` launch with the two mlp_shared convs concatenated, from
+    ``pack`` (``pack_dual``) or packed for this call, on an NHWC ``seg``.
+    Train mode: each SPADE's ``forward_train`` on an NCHW ``seg``."""
+    norm_a_x = norm_a.normalize(x)
+    norm_b_x = (norm_a_x if norm_b.param_free_norm is None
+                else norm_b.normalize(x))
     if norm_a.training:
-        return (norm_a.forward_train(x, seg, normalized),
-                norm_b.forward_train(x, seg, normalized))
+        return (norm_a.forward_train(x, seg, norm_a_x),
+                norm_b.forward_train(x, seg, norm_b_x))
     gb_a, gb_b = spade_cond_packed(seg, pack or pack_dual(norm_a, norm_b))
-    return SPADE.modulate(normalized, gb_a), SPADE.modulate(normalized, gb_b)
+    return SPADE.modulate(norm_a_x, gb_a), SPADE.modulate(norm_b_x, gb_b)

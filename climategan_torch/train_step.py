@@ -18,8 +18,15 @@ What carries over from the JAX step:
     parameters are frozen while the step runs.
   * Every GAN loss of one step shares one draw ``(soft, flip)``: ``soft``
     is the label shift (a uniform times ``dis.soft_shift``), ``flip`` the
-    label flip (a uniform below ``dis.flip_prob``). Each step draws its
-    own from ``TrainState.generator``; ``draws=`` passes them in.
+    label flip (a uniform below ``dis.flip_prob``). A painter with z
+    (``gen.p.no_z: false``) also takes one NCHW latent for the rf batch
+    per step. Each step draws both from ``TrainState.generator``, the
+    z after ``(soft, flip)``; ``draws=`` and ``z=`` pass them in.
+  * The SPADE mask decoder's conditioning is ``G.make_m_cond`` of the
+    step's own depth and seg outputs, their gradient stopped in the D step
+    and with ``gen.m.spade.detach``. The depth loss is the bucket
+    cross-entropy under ``gen.d.classify.enable``, berHu under
+    ``gen.d.loss: dada``, else the scale-invariant one.
   * Mixed precision: with ``train.bf16`` the generator runs under bf16
     autocast on bf16 inputs; parameters, optimizer state, statistics, the
     discriminators and the losses stay f32.
@@ -90,6 +97,10 @@ class TrainConfig:
     s_gan_type: str = "WGAN_norm"
     use_vgg: bool = True
     bf16: bool = True
+    d_classify: bool = False
+    d_loss: str = "sigm"
+    m_use_spade: bool = False
+    p_no_z: bool = True
     pseudo_tasks: Tuple[str, ...] = ()
     lam_s_crossent_pseudo: float = 0.001
     wgan_clamp: Tuple[float, float] = (-0.01, 0.01)
@@ -133,6 +144,11 @@ class TrainConfig:
             s_gan_type=opts.dis.s.get("gan_type", "WGAN_norm"),
             use_vgg=float(lam.G.p.vgg) != 0,
             bf16=bool(opts.train.get("bf16", True)),
+            d_classify=bool(opts.gen.d.get("classify", {}).get("enable",
+                                                                False)),
+            d_loss=opts.gen.d.get("loss", "sigm"),
+            m_use_spade=bool(opts.gen.m.get("use_spade", False)),
+            p_no_z=bool(opts.gen.p.get("no_z", True)),
             pseudo_tasks=tuple(opts.train.get("pseudo", {}).get("tasks", [])
                                or []),
             lam_s_crossent_pseudo=float(lam.G.s.get("crossent_pseudo", 0.001)),
@@ -158,13 +174,6 @@ def refuse_unported(opts) -> None:
                                   opts.dis.s.get("gan_type")), REMAINDER),
         ("gen.p.diff_aug.use", bool(opts.gen.p.diff_aug.get("use", False)),
          REMAINDER),
-        ("gen.m.use_spade", bool(opts.gen.m.get("use_spade", False)),
-         "ROADMAP A.10 (MaskSpadeDecoder)"),
-        ("gen.d.classify.enable",
-         bool(opts.gen.d.get("classify", {}).get("enable", False)),
-         "ROADMAP A.10 (BaseDepthDecoder)"),
-        ("gen.d.loss: dada", opts.gen.d.get("loss", "sigm") == "dada",
-         "ROADMAP A.10 (BaseDepthDecoder)"),
     ]
     for name, on, item in checks:
         if on:
@@ -210,8 +219,8 @@ def frozen(module: nn.Module) -> Iterator[None]:
 
 
 def _named(module: nn.Module) -> Tuple[List[str], List[torch.Tensor]]:
-    names, params = zip(*module.named_parameters())
-    return list(names), list(params)
+    named = list(module.named_parameters())
+    return [n for n, _ in named], [p for _, p in named]
 
 
 class StepBuilder:
@@ -274,6 +283,20 @@ class StepBuilder:
         return (float(u[0]) * self.cfg.soft_shift,
                 bool(u[1] < self.cfg.flip_prob))
 
+    def painter_z(self, state: TrainState, batch: Batch,
+                  z: Optional[torch.Tensor] = None
+                  ) -> Optional[torch.Tensor]:
+        """``z``, or the painter's z for ``batch``'s rf images drawn from
+        the state's generator (on the host) where the painter takes one;
+        None where it takes none."""
+        if (z is not None or self.cfg.p_no_z or "rf" not in batch
+                or "p" not in self.cfg.tasks):
+            return z
+        x = batch["rf"]["x"]
+        return state.G.sample_painter_z(
+            x.shape[0], x.shape[2], x.shape[3],
+            generator=state.generator).to(x.device)
+
     def _autocast(self, x: torch.Tensor, enabled: bool):
         return torch.autocast(x.device.type, dtype=torch.bfloat16,
                               enabled=enabled)
@@ -311,7 +334,14 @@ class StepBuilder:
             if "s" in cfg.tasks:
                 s_pred = G.segmentation(z, z_depth)
             if "m" in cfg.tasks and ("m" in batch or for_ == "D"):
-                logits = G.mask(z, z_depth, sigmoid=False, update_sn=update_sn)
+                cond = None
+                if cfg.m_use_spade and d_pred is not None and s_pred is not None:
+                    d_c, s_c = d_pred, s_pred
+                    if for_ == "D":
+                        d_c, s_c = d_c.detach(), s_c.detach()
+                    cond = G.make_m_cond(d_c, s_c, x)
+                logits = G.mask(z, z_depth, sigmoid=False, update_sn=update_sn,
+                                cond=cond)
 
         def disc(method):
             return lambda e: method(e.float(), update_sn=update_sn)
@@ -319,8 +349,18 @@ class StepBuilder:
         if (for_ == "G" and "d" in batch and d_pred is not None
                 and (domain == "s" or "d" in cfg.pseudo_tasks)
                 and cfg.lam_d_main != 0):
-            dl = L.sigm_loss(d_pred.float(), batch["d"].float(),
-                             gmweight=cfg.lam_d_gml) * cfg.lam_d_main
+            pred = d_pred.float()
+            if cfg.d_classify:
+                target = batch["d"]
+                if target.ndim == 4:  # (N, 1, H, W) bucket indices
+                    target = target[:, 0]
+                dl = L.cross_entropy(pred, target.long())
+            elif cfg.d_loss == "dada":
+                dl = L.dada_depth_loss(pred, batch["d"].float())
+            else:
+                dl = L.sigm_loss(pred, batch["d"].float(),
+                                 gmweight=cfg.lam_d_gml)
+            dl = dl * cfg.lam_d_main
             if domain != "s":
                 dl = dl * pseudo_scale
             total = total + dl
@@ -401,21 +441,24 @@ class StepBuilder:
                     metrics[f"m_advent_{for_}_{domain}"] = al
         return total, metrics
 
-    def _paint(self, G, batch, update_sn: bool, bf16: bool):
-        """(x, m, fake) in f32; the painter runs in bf16 under ``bf16``."""
+    def _paint(self, G, batch, update_sn: bool, bf16: bool,
+               z: Optional[torch.Tensor] = None):
+        """(x, m, fake) in f32; the painter runs in bf16 under ``bf16``, on
+        ``z`` where it takes one."""
         dt = torch.bfloat16 if bf16 else torch.float32
         x, m = batch["x"].to(dt), batch["m"].to(dt)
         with self._autocast(x, bf16):
-            fake = G.paint(m, x, update_sn=update_sn)
+            fake = G.paint(m, x, update_sn=update_sn, z=z)
         return x.float(), m.float(), fake.float()
 
     def _painter_losses(self, G, D, batch, draws: Draws, update_sn: bool,
-                        bf16: Optional[bool] = None):
+                        bf16: Optional[bool] = None,
+                        z: Optional[torch.Tensor] = None):
         """Painter losses of the G step on the rf domain. Returns
         ``(total, metrics)``."""
         cfg = self.cfg
         x, m, fake = self._paint(G, batch, update_sn,
-                                 cfg.bf16 if bf16 is None else bf16)
+                                 cfg.bf16 if bf16 is None else bf16, z)
         metrics: Dict[str, torch.Tensor] = {}
         total = 0.0
         if cfg.use_vgg and cfg.lam_p_vgg != 0 and self.vgg is not None:
@@ -452,11 +495,13 @@ class StepBuilder:
     # the steps
     # ------------------------------------------------------------------
     def g_step(self, state: TrainState, batch: Batch, lr_scale: float = 1.0,
-               pseudo_scale: float = 1.0, draws: Optional[Draws] = None
+               pseudo_scale: float = 1.0, draws: Optional[Draws] = None,
+               z: Optional[torch.Tensor] = None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """update_G: the masker losses over r and s, then the painter's over
         rf; one optimizer call over G's parameters."""
         draws = self.draw(state) if draws is None else draws
+        z = self.painter_z(state, batch, z)
         G, D = state.G, state.D
         total = 0.0
         metrics: Dict[str, torch.Tensor] = {}
@@ -469,7 +514,8 @@ class StepBuilder:
                     total = total + dl
                     metrics.update(dm)
             if "p" in self.cfg.tasks and "rf" in batch:
-                pl, pm = self._painter_losses(G, D, batch["rf"], draws, True)
+                pl, pm = self._painter_losses(G, D, batch["rf"], draws, True,
+                                              z=z)
                 total = total + pl
                 metrics.update(pm)
         names, params = _named(G)
@@ -483,12 +529,14 @@ class StepBuilder:
         return state, {k: v.detach() for k, v in metrics.items()}
 
     def d_step(self, state: TrainState, batch: Batch, lr_scale: float = 1.0,
-               draws: Optional[Draws] = None
+               draws: Optional[Draws] = None,
+               z: Optional[torch.Tensor] = None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """update_D: the painter D on rf and the ADVENT Ds on r and s, in
         the batch's order; one optimizer call over D's parameters, WGAN
         clipping of the ADVENT Ds, then the global step advances."""
         draws = self.draw(state) if draws is None else draws
+        z = self.painter_z(state, batch, z)
         cfg = self.cfg
         G, D = state.G, state.D
         total = 0.0
@@ -496,7 +544,7 @@ class StepBuilder:
         for domain, dbatch in batch.items():
             if domain == "rf" and "p" in cfg.tasks:
                 with torch.no_grad():
-                    x, m, fake = self._paint(G, dbatch, True, cfg.bf16)
+                    x, m, fake = self._paint(G, dbatch, True, cfg.bf16, z)
                 real_fake = torch.cat([torch.cat([m, x], dim=1),
                                        torch.cat([m, fake], dim=1)], dim=0)
                 real_d, fake_d = divide_pred(D.disc_p(real_fake,
@@ -511,19 +559,20 @@ class StepBuilder:
                 total = total + dl * cfg.adv_main
                 metrics.update(dm)
         names, params = _named(D)
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        scales = (build_lr_scales(names, self.d_lr_rules)
-                  if self.d_lr_rules else None)
-        state.d_opt = self.d_opt_step(grads, state.d_opt, params,
-                                      self.d_lr * lr_scale,
-                                      state.step % 2 == 0, scales)
+        if params:  # no discriminator (no task has a GAN loss): no update
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            scales = (build_lr_scales(names, self.d_lr_rules)
+                      if self.d_lr_rules else None)
+            state.d_opt = self.d_opt_step(grads, state.d_opt, params,
+                                          self.d_lr * lr_scale,
+                                          state.step % 2 == 0, scales)
         if cfg.m_gan_type == "WGAN" or cfg.s_gan_type == "WGAN":
             lo, hi = cfg.wgan_clamp
             for name in ("m_advent", "s_advent"):
                 if hasattr(D, name):
                     clamp_params(list(getattr(D, name).parameters()), lo, hi)
         state.step += 1
-        metrics["d_total"] = total
+        metrics["d_total"] = torch.as_tensor(total)
         return state, {k: v.detach() for k, v in metrics.items()}
 
     def train_step(self, state: TrainState, batch: Batch,
@@ -539,12 +588,16 @@ class StepBuilder:
     @torch.no_grad()
     def eval_losses(self, state: TrainState, batch: Batch,
                     pseudo_scale: float = 1.0,
-                    draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
+                    draws: Optional[Draws] = None,
+                    z: Optional[torch.Tensor] = None
+                    ) -> Dict[str, torch.Tensor]:
         """Validation G losses with G and D in eval mode (baked spectral
         kernels, packed SPADEs, running statistics), in f32, with fixed
-        draws (seed 0 unless given); the models go back to train mode."""
-        if draws is None:
-            draws = self.draw(TrainState(None, None, {}, {}))
+        draws and z (seed 0 unless given); the models go back to train
+        mode."""
+        fixed = TrainState(state.G, None, {}, {})
+        draws = self.draw(fixed) if draws is None else draws
+        z = self.painter_z(fixed, batch, z)
         G, D = state.G.eval(), state.D.eval()
         metrics: Dict[str, torch.Tensor] = {}
         total = 0.0
@@ -558,7 +611,7 @@ class StepBuilder:
                     metrics.update({f"val_{k}": v for k, v in dm.items()})
             if "p" in self.cfg.tasks and "rf" in batch:
                 pl, pm = self._painter_losses(G, D, batch["rf"], draws, False,
-                                              bf16=False)
+                                              bf16=False, z=z)
                 total = total + pl
                 metrics.update({f"val_{k}": v for k, v in pm.items()})
         finally:

@@ -414,7 +414,7 @@ class Trainer:
                     if "d" in tasks:
                         if "d" in t:
                             cols.append(grey(t["d"], hw))
-                        cols.append(grey(d, hw))
+                        cols.append(grey(G.depth_map(d), hw))
                     if "s" in tasks:
                         nc = int(s.shape[1])
                         if "s" in t:
@@ -444,6 +444,7 @@ class Trainer:
         hw = tuple(x.shape[-2:])
         with self._eval_G() as G:
             d, s, m = G.infer_masker(x)
+            d = G.depth_map(d)
             panels = [_nhwc((x + 1) / 2)]
             dn = resize((d - d.min()) / (d.max() - d.min() + 1e-9), hw,
                         "bilinear")
@@ -479,7 +480,7 @@ class Trainer:
             if mask_batch is None:
                 z = G.encode(xw)
                 z_depth = G.depth(z)[1] if G.cfg.m_use_dada else None
-                m = G.mask(z, z_depth)
+                m = G.mask(z, z_depth, x=xw)
             else:
                 m = torch.as_tensor(np.asarray(mask_batch, np.float32)) \
                     .permute(0, 3, 1, 2).to(self.device)

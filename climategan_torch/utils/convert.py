@@ -6,7 +6,9 @@ torch tensors under the reference keys: HWIO kernels become OIHW; a conv
 with spectral ``u``/``v`` becomes ``<key>.module.weight_bar`` /
 ``.module.bias`` / ``.module.weight_u`` / ``.module.weight_v``; a BatchNorm
 wrapper's ``scale``/``bias``/``mean``/``var`` become ``weight``/``bias``/
-``running_mean``/``running_var`` (plus a zero ``num_batches_tracked``).
+``running_mean``/``running_var`` (plus a zero ``num_batches_tracked``); a
+batch norm without affine parameters (a SPADE's ``param_free_norm``) keeps
+only the statistics.
 It is the inverse of the JAX package's reference -> JAX converter, and
 carries everything a train-mode model reads (running statistics, u/v).
 ``d_state_dict_from_jax(variables, dcfg)`` does the same for the
@@ -21,13 +23,14 @@ the keys of ``OmniGenerator(cfg).state_dict()``, with the JAX package's
 from __future__ import annotations
 
 import warnings
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterable, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from climategan_torch.models.discriminator import DisConfig
 from climategan_torch.models.generator import GenConfig, OmniGenerator
+from climategan_torch.models.mobilenet import STAGES as MOBILENET_STAGES
 
 Path = Tuple[str, ...]
 Entry = Tuple[str, str, Path]  # (kind, torch key, JAX path)
@@ -39,23 +42,86 @@ def _conv2dblock(tkey: str, path: Path, batch: bool) -> Iterator[Entry]:
         yield "bn", f"{tkey}.norm", path + ("norm", "BatchNorm_0")
 
 
-def _encoder(cfg: GenConfig) -> Iterator[Entry]:
-    e = ("encoder",)
-    yield "conv", "encoder.conv1", e + ("conv1",)
-    yield "bn", "encoder.bn1", e + ("bn1", "BatchNorm_0")
-    for stage, n in enumerate(cfg.encoder_layers):
+def _convbn(tkey: str, path: Path) -> Iterator[Entry]:
+    """A module with ``conv`` and a BatchNorm wrapper ``bn``."""
+    yield "conv", f"{tkey}.conv", path + ("conv",)
+    yield "bn", f"{tkey}.bn", path + ("bn", "BatchNorm_0")
+
+
+def _resnet(t: str, e: Path, layers) -> Iterator[Entry]:
+    """The dilated ResNet and the v2 ResNetMulti: every stage's first block
+    has a downsample."""
+    yield "conv", f"{t}.conv1", e + ("conv1",)
+    yield "bn", f"{t}.bn1", e + ("bn1", "BatchNorm_0")
+    for stage, n in enumerate(layers):
         for b in range(n):
-            t, p = f"encoder.layer{stage + 1}.{b}", e + (f"layer{stage + 1}_block{b}",)
+            tb, p = f"{t}.layer{stage + 1}.{b}", e + (f"layer{stage + 1}_block{b}",)
             for i in (1, 2, 3):
-                yield "conv", f"{t}.conv{i}", p + (f"conv{i}",)
-                yield "bn", f"{t}.bn{i}", p + (f"bn{i}", "BatchNorm_0")
+                yield "conv", f"{tb}.conv{i}", p + (f"conv{i}",)
+                yield "bn", f"{tb}.bn{i}", p + (f"bn{i}", "BatchNorm_0")
             if b == 0:
-                yield "conv", f"{t}.downsample.0", p + ("downsample_conv",)
-                yield "bn", f"{t}.downsample.1", p + ("downsample_bn", "BatchNorm_0")
+                yield "conv", f"{tb}.downsample.0", p + ("downsample_conv",)
+                yield "bn", f"{tb}.downsample.1", p + ("downsample_bn", "BatchNorm_0")
+
+
+def _mobilenet(t: str = "encoder", e: Path = ("encoder",)) -> Iterator[Entry]:
+    yield from _convbn(f"{t}.conv1", e + ("conv1",))
+    for s, groups in enumerate(MOBILENET_STAGES):
+        j = 0
+        for expand, _, n, _ in groups:
+            for _ in range(n):
+                tk, q = f"{t}.block{s + 1}.{j}.conv", e + (f"block{s + 1}_ir{j}",)
+                li = 0
+                if expand != 1:
+                    yield from _convbn(f"{tk}.0", q + ("layer0",))
+                    li = 1
+                yield from _convbn(f"{tk}.{li}", q + (f"layer{li}",))
+                yield "conv", f"{tk}.{li + 1}", q + ("project",)
+                yield "bn", f"{tk}.{li + 2}", q + ("project_bn", "BatchNorm_0")
+                j += 1
+
+
+def _encoder(cfg: GenConfig) -> Iterator[Entry]:
+    if cfg.encoder_arch == "deeplabv2":
+        yield from _resnet("encoder.model", ("encoder",), cfg.encoder_layers)
+        for r in range(cfg.encoder_n_res):
+            for ci in (0, 1):
+                yield from _conv2dblock(
+                    f"encoder.model.layer_res.model.{r}.model.{ci}",
+                    ("encoder", "layer_res", f"block{r}", f"conv{ci + 1}"), False)
+    elif cfg.backbone == "mobilenet":
+        yield from _mobilenet()
+    else:
+        yield from _resnet("encoder", ("encoder",), cfg.encoder_layers)
+
+
+def _base_decoder(t: str, p: Path, n_res: int, n_up: int, batch: bool,
+                  low_level: bool) -> Iterator[Entry]:
+    """A BaseDecoder (``proj_conv``, the low-level convs, ``model``: the
+    ResBlocks, then an upsample and a conv per step, then the output
+    conv)."""
+    yield from _conv2dblock(f"{t}.proj_conv", p + ("proj_conv",), batch)
+    if low_level:
+        for name in ("low_level_conv", "merge_feats_conv"):
+            yield from _conv2dblock(f"{t}.{name}", p + (name,), batch)
+    for r in range(n_res):
+        for ci in (0, 1):
+            yield from _conv2dblock(f"{t}.model.0.model.{r}.model.{ci}",
+                                    p + ("res_blocks", f"block{r}", f"conv{ci + 1}"),
+                                    batch)
+    for u in range(n_up):
+        yield from _conv2dblock(f"{t}.model.{2 + 2 * u}", p + (f"up_conv{u}",),
+                                batch)
+    yield from _conv2dblock(f"{t}.model.{1 + 2 * n_up}", p + ("out_conv",), False)
 
 
 def _depth(cfg: GenConfig) -> Iterator[Entry]:
     p = ("depth_decoder",)
+    if cfg.d_architecture != "dada":
+        yield from _base_decoder("decoders.d", p + ("decoder",), 1,
+                                 1 if cfg.d_upsample_featuremaps else 0, True,
+                                 False)
+        return
     for name in ("enc4_1", "enc4_2", "enc4_3"):
         yield from _conv2dblock(f"decoders.d.{name}", p + (name,), True)
     if cfg.m_use_dada or ("s" in cfg.tasks and cfg.s_use_dada):
@@ -65,8 +131,29 @@ def _depth(cfg: GenConfig) -> Iterator[Entry]:
         yield "conv", "decoders.d.upsample.2", p + ("up_out", "conv")
 
 
-def _seg() -> Iterator[Entry]:
+def _seg(cfg: GenConfig) -> Iterator[Entry]:
     p = ("seg_decoder",)
+    if cfg.encoder_arch == "deeplabv2" or cfg.s_architecture == "deeplabv2":
+        for i in (1, 2, 3, 4):
+            yield "conv", f"decoders.s.aspp.aspp{i}.atrous_conv", p + (f"aspp{i}", "atrous_conv")
+            yield "bn", f"decoders.s.aspp.aspp{i}.bn", p + (f"aspp{i}", "bn", "BatchNorm_0")
+        yield "conv", "decoders.s.aspp.global_avg_pool.1", p + ("gap_conv",)
+        yield "bn", "decoders.s.aspp.global_avg_pool.2", p + ("gap_bn", "BatchNorm_0")
+        yield "conv", "decoders.s.aspp.conv1", p + ("conv1",)
+        yield "bn", "decoders.s.aspp.bn1", p + ("bn1", "BatchNorm_0")
+        for i, name in ((0, "head0"), (4, "head1")):
+            yield "conv", f"decoders.s.conv.{i}", p + (name,)
+            yield "bn", f"decoders.s.conv.{i + 1}", p + (f"{name}_bn", "BatchNorm_0")
+        yield "conv", "decoders.s.conv.8", p + ("classifier",)
+        return
+    if cfg.backbone == "mobilenet":
+        for i in (0, 1):
+            t, q = f"decoders.s.head.block.{i}.block", p + ("head", f"sep{i}")
+            for conv, bn in (("depthwise", "bn_depth"), ("pointwise", "bn_point")):
+                yield "conv", f"{t}.{conv}", q + (conv,)
+                yield "bn", f"{t}.{bn}", q + (bn, "BatchNorm_0")
+        yield "conv", "decoders.s.head.block.2", p + ("head", "classifier")
+        return
     convbns = [(f"aspp.{n}", ("aspp", n)) for n in
                ("conv1", "conv2", "conv3", "conv4", "conv_out")]
     convbns += [("decoder.conv_low", ("decoder", "conv_low"))]
@@ -77,53 +164,69 @@ def _seg() -> Iterator[Entry]:
     yield "conv", "decoders.s.decoder.conv_out", p + ("decoder", "conv_out")
 
 
+def _spade_block(t: str, q: Path, learned: bool, batch: bool) -> Iterator[Entry]:
+    convs = ("conv_0", "conv_1") + (("conv_s",) if learned else ())
+    norms = ("norm_0", "norm_1") + (("norm_s",) if learned else ())
+    for c in convs:
+        yield "conv", f"{t}.{c}", q + (c,)
+    for n in norms:
+        yield "conv", f"{t}.{n}.mlp_shared.0", q + (n, "mlp_shared")
+        yield "conv", f"{t}.{n}.mlp_gamma", q + (n, "mlp_gamma")
+        yield "conv", f"{t}.{n}.mlp_beta", q + (n, "mlp_beta")
+        if batch:
+            yield "stats", f"{t}.{n}.param_free_norm", q + (n, "param_free_norm")
+
+
 def _mask(cfg: GenConfig) -> Iterator[Entry]:
-    p = ("mask_decoder", "decoder")
-    batch = cfg.m_norm == "batch"
-    yield from _conv2dblock("decoders.m.proj_conv", p + ("proj_conv",), batch)
-    if cfg.m_use_low_level_feats:
-        for name in ("low_level_conv", "merge_feats_conv"):
-            yield from _conv2dblock(f"decoders.m.{name}", p + (name,), batch)
-    for r in range(cfg.m_n_res):
-        for ci in (0, 1):
-            yield from _conv2dblock(
-                f"decoders.m.model.0.model.{r}.model.{ci}",
-                p + ("res_blocks", f"block{r}", f"conv{ci + 1}"), batch)
-    for u in range(cfg.m_n_upsample):
-        yield from _conv2dblock(f"decoders.m.model.{2 + 2 * u}",
-                                p + (f"up_conv{u}",), batch)
-    yield from _conv2dblock(f"decoders.m.model.{1 + 2 * cfg.m_n_upsample}",
-                            p + ("out_conv",), False)
+    if not cfg.m_use_spade:
+        yield from _base_decoder(
+            "decoders.m", ("mask_decoder", "decoder"), cfg.m_n_res,
+            cfg.m_n_upsample, cfg.m_norm == "batch",
+            cfg.m_use_low_level_feats and cfg.encoder_arch != "deeplabv2")
+        return
+    p = ("mask_decoder",)
+    if cfg.encoder_arch == "deeplabv2":
+        names = ("fc_conv",)
+    else:
+        names = ("low_level_conv",) + (("high_level_conv",) if cfg.m_use_proj
+                                       else ()) + ("merge_feats_conv",)
+    for name in names:
+        yield from _conv2dblock(f"decoders.m.{name}", p + (name,), True)
+    for i in range(cfg.m_spade_num_layers):
+        yield from _spade_block(f"decoders.m.spade_blocks.{i}",
+                                p + (f"spade_block{i}",), True, True)
+    yield from _conv2dblock("decoders.m.mask_conv", p + ("mask_conv",), False)
 
 
 def _painter(cfg: GenConfig) -> Iterator[Entry]:
     p = ("painter",)
-    yield "conv", "painter.fc", p + ("fc",)
+    batch = cfg.p_spade_param_free_norm == "batch"
+    if cfg.p_no_z:
+        yield "conv", "painter.fc", p + ("fc",)
     blocks = [(n, n, False) for n in ("head_0", "G_middle_0", "G_middle_1")]
     blocks += [(f"up_spades.{i}", f"up_spade{i}", True)
                for i in range(cfg.p_spade_n_up - 2)]
     blocks += [("final_spade", "final_spade", False)]
     for tname, jname, learned in blocks:
-        t, q = f"painter.{tname}", p + (jname,)
-        convs = ("conv_0", "conv_1") + (("conv_s",) if learned else ())
-        norms = ("norm_0", "norm_1") + (("norm_s",) if learned else ())
-        for c in convs:
-            yield "conv", f"{t}.{c}", q + (c,)
-        for n in norms:
-            yield "conv", f"{t}.{n}.mlp_shared.0", q + (n, "mlp_shared")
-            yield "conv", f"{t}.{n}.mlp_gamma", q + (n, "mlp_gamma")
-            yield "conv", f"{t}.{n}.mlp_beta", q + (n, "mlp_beta")
+        yield from _spade_block(f"painter.{tname}", p + (jname,), learned,
+                                batch)
+    if cfg.p_use_final_shortcut:
+        yield "conv", "painter.final_shortcut_conv", p + ("final_shortcut_conv",)
+        yield "bn", "painter.final_shortcut_bn", p + ("final_shortcut_bn",
+                                                      "BatchNorm_0")
     yield "conv", "painter.conv_img", p + ("conv_img",)
 
 
 def entries(cfg: GenConfig) -> Iterator[Entry]:
-    """(kind, torch key prefix, JAX path) for every conv and batch norm."""
+    """(kind, torch key prefix, JAX path) for every conv and batch norm
+    ("conv", "bn", or "stats" for a batch norm without affine
+    parameters)."""
     if any(t in cfg.tasks for t in "msd"):
         yield from _encoder(cfg)
     if "d" in cfg.tasks:
         yield from _depth(cfg)
     if "s" in cfg.tasks:
-        yield from _seg()
+        yield from _seg(cfg)
     if "m" in cfg.tasks:
         yield from _mask(cfg)
     if "p" in cfg.tasks:
@@ -146,17 +249,25 @@ def _tensor(a) -> torch.Tensor:
 
 
 def state_dict_from_jax(variables: Dict, cfg: GenConfig) -> Dict[str, torch.Tensor]:
+    return state_dict_from_entries(variables, entries(cfg))
+
+
+def state_dict_from_entries(variables: Dict, items: Iterable[Entry]
+                            ) -> Dict[str, torch.Tensor]:
+    """The torch tensors of ``items`` ((kind, torch key, JAX path), as
+    ``entries`` yields them) from a JAX variable tree."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     spectral = variables.get("spectral", {})
     sd: Dict[str, torch.Tensor] = {}
-    for kind, tkey, path in entries(cfg):
-        if kind == "bn":
+    for kind, tkey, path in items:
+        if kind in ("bn", "stats"):
             p, s = _get(params, path), _get(stats, path)
-            if p is None or s is None:
+            if (p is None and kind == "bn") or s is None:
                 raise KeyError(f"no batch norm at {'/'.join(path)}")
-            sd[f"{tkey}.weight"] = _tensor(p["scale"])
-            sd[f"{tkey}.bias"] = _tensor(p["bias"])
+            if kind == "bn":
+                sd[f"{tkey}.weight"] = _tensor(p["scale"])
+                sd[f"{tkey}.bias"] = _tensor(p["bias"])
             sd[f"{tkey}.running_mean"] = _tensor(s["mean"])
             sd[f"{tkey}.running_var"] = _tensor(s["var"])
             sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
@@ -325,74 +436,118 @@ def state_dict_from_reference(
 # ---------------------------------------------------------------------------
 
 
-def convert_pretrained_seg_resnet(sd: Mapping[str, Any],
-                                  skip_classes: int = 19
-                                  ) -> Dict[str, torch.Tensor]:
-    """A pretrained DeepLabv3+ (resnet) state dict's ``aspp.*`` and
-    ``decoder.*`` keys under the seg decoder's (``decoders.s.``), without
-    the source's 19-class classifier (deeplab_v3.py:197-216);
-    ``num_batches_tracked`` is not read, as the JAX converter reads it
-    not."""
+def _without_classifier(sd: Mapping[str, Any], prefixes: Tuple[str, ...],
+                        classifier: str, skip_classes: int
+                        ) -> Dict[str, torch.Tensor]:
+    """The keys of ``sd`` under ``prefixes`` (``num_batches_tracked`` not
+    read, as the JAX converters read it not), under the seg decoder's
+    prefix, without the classifier at ``classifier`` when it has
+    ``skip_classes`` outputs (the source's 19 classes)."""
     out = {}
+    skip = (f"{classifier}.weight" in sd
+            and sd[f"{classifier}.weight"].shape[0] == skip_classes)
     for k, v in sd.items():
-        if not k.startswith(("aspp.", "decoder.")) or \
-                k.endswith(".num_batches_tracked"):
+        if not k.startswith(prefixes) or k.endswith(".num_batches_tracked"):
             continue
-        if k.startswith("decoder.conv_out.") and \
-                sd["decoder.conv_out.weight"].shape[0] == skip_classes:
+        if skip and k.startswith(classifier + "."):
             continue
         out["decoders.s." + k] = torch.as_tensor(v)
     return out
 
 
+def convert_pretrained_seg_resnet(sd: Mapping[str, Any],
+                                  skip_classes: int = 19
+                                  ) -> Dict[str, torch.Tensor]:
+    """A pretrained DeepLabv3+ (resnet) state dict's ``aspp.*`` and
+    ``decoder.*`` keys under the seg decoder's (``decoders.s.``), without
+    the source's 19-class classifier (deeplab_v3.py:197-216)."""
+    return _without_classifier(sd, ("aspp.", "decoder."), "decoder.conv_out",
+                               skip_classes)
+
+
+def convert_pretrained_seg_mobilenet(sd: Mapping[str, Any],
+                                     skip_classes: int = 19
+                                     ) -> Dict[str, torch.Tensor]:
+    """A pretrained mobilenet DeepLab's ``head.block.*`` keys under the seg
+    decoder's, without the source's 19-class classifier
+    (``head.block.2``, deeplab_v3.py:218-230)."""
+    return _without_classifier(sd, ("head.",), "head.block.2", skip_classes)
+
+
 def maybe_load_pretrained_backbone(opts, G: OmniGenerator) -> bool:
-    """Honour ``gen.deeplabv3.use_pretrained`` and its
-    ``pretrained_model.resnet`` path (reference defaults.yaml:108-120,
-    deeplab/__init__.py:54-101): the ``backbone.*`` keys into the encoder
-    and, with the seg task, the ``aspp.*``/``decoder.*`` keys into the seg
-    decoder, in place. Returns whether it loaded. Every encoder key must be
-    in the file; other keys of the file are ignored."""
+    """Honour ``gen.deeplabv3.use_pretrained`` (its
+    ``pretrained_model.{resnet,mobilenet}`` path) and
+    ``gen.deeplabv2.use_pretrained`` (its ``pretrained_model`` path), as the
+    JAX package's loader does (reference defaults.yaml:108-120,
+    deeplab/__init__.py:54-101), in place; returns whether it loaded.
+
+    * resnet: the ``backbone.*`` keys into the encoder, every encoder key
+      required; with the seg task, the ``aspp.*``/``decoder.*`` keys into
+      the seg decoder;
+    * mobilenet: the file's keys (a leading ``encoder.`` dropped) into the
+      encoder where the model has them, at least one required (the
+      reference updates the intersection); with the seg task, the
+      ``head.*`` keys into the seg decoder;
+    * deeplabv2: each key's first component dropped, ``layer5.*`` and
+      ``resblock.*`` skipped, the rest into the ResNetMulti encoder, every
+      key of its ResNet required (its trailing ResBlocks keep their
+      values).
+
+    Other keys of the file are ignored; the classifier of the source's 19
+    classes is not loaded."""
     from pathlib import Path as FilePath
 
     g = opts.gen
     if not any(t in (opts.tasks or ()) for t in "msd"):
         return False
-    if g.encoder.get("architecture", "deeplabv3") != "deeplabv3":
-        if g.deeplabv2.get("use_pretrained"):
-            raise ValueError("gen.deeplabv2.use_pretrained: the DeepLabv2 "
-                             "encoder is not ported yet (ROADMAP A.10)")
-        return False
-    conf = g.deeplabv3
+    v2 = g.encoder.get("architecture", "deeplabv3") == "deeplabv2"
+    conf = g.deeplabv2 if v2 else g.deeplabv3
     if not conf.get("use_pretrained"):
         return False
-    backbone = conf.get("backbone", "resnet")
-    if backbone != "resnet":
-        raise ValueError(f"gen.deeplabv3.backbone={backbone!r}: only the "
-                         "resnet backbone is ported (ROADMAP A.10)")
+    backbone = "resnet" if v2 else conf.get("backbone", "resnet")
     pm = conf.get("pretrained_model") or {}
     path = str(pm.get(backbone, "") if isinstance(pm, Mapping) else pm)
+    name = ("gen.deeplabv2.pretrained_model" if v2
+            else f"gen.deeplabv3.pretrained_model.{backbone}")
     if not path or not FilePath(path).exists():
-        raise FileNotFoundError(
-            f"gen.deeplabv3.use_pretrained set but pretrained_model."
-            f"{backbone} {path!r} does not exist")
+        raise FileNotFoundError(f"{name} {path!r} does not exist")
     sd = load_torch_state_dict(path)
-    new = {"encoder." + k[len("backbone."):]: torch.as_tensor(v)
-           for k, v in sd.items() if k.startswith("backbone.")
-           and not k.endswith(".num_batches_tracked")}
-    if "s" in opts.tasks and g.s.get("architecture",
-                                     "deeplabv3") == "deeplabv3":
-        new.update(convert_pretrained_seg_resnet(sd))
+    has_seg = "s" in opts.tasks and g.s.get("architecture",
+                                            "deeplabv3") == "deeplabv3"
+    if v2:
+        new, required = {}, "encoder.model."
+        for k, v in sd.items():
+            parts = k.split(".")
+            if len(parts) > 1 and parts[1] in ("layer5", "resblock"):
+                continue
+            new["encoder.model." + ".".join(parts[1:])] = torch.as_tensor(v)
+    elif backbone == "mobilenet":
+        new, required = {"encoder." + k.replace("encoder.", "", 1):
+                         torch.as_tensor(v) for k, v in sd.items()}, None
+        if has_seg:
+            new.update(convert_pretrained_seg_mobilenet(sd))
+    else:
+        new, required = {"encoder." + k[len("backbone."):]: torch.as_tensor(v)
+                         for k, v in sd.items()
+                         if k.startswith("backbone.")}, "encoder."
+        if has_seg:
+            new.update(convert_pretrained_seg_resnet(sd))
     target = G.state_dict()
-    missing = [k for k in target if k.startswith("encoder.") and k not in new
-               and not k.endswith(".num_batches_tracked")]
-    if missing:
-        raise KeyError(f"{path}: {len(missing)} encoder keys missing, e.g. "
-                       f"{missing[:3]}")
-    for k in list(new):
-        if k not in target:
-            del new[k]
-        elif tuple(new[k].shape) != tuple(target[k].shape):
-            raise ValueError(f"{path}: {k} has shape {tuple(new[k].shape)}, "
+    new = {k: v for k, v in new.items()
+           if k in target and not k.endswith(".num_batches_tracked")}
+    if required is not None:
+        missing = [k for k in target if k.startswith(required)
+                   and ".layer_res." not in k and k not in new
+                   and not k.endswith(".num_batches_tracked")]
+        if missing:
+            raise KeyError(f"{path}: {len(missing)} encoder keys missing, "
+                           f"e.g. {missing[:3]}")
+    elif not any(k.startswith("encoder.") for k in new):
+        raise ValueError(f"no {backbone} backbone weights matched in "
+                         f"{path!r} ({len(sd)} keys present)")
+    for k, v in new.items():
+        if tuple(v.shape) != tuple(target[k].shape):
+            raise ValueError(f"{path}: {k} has shape {tuple(v.shape)}, "
                              f"the model {tuple(target[k].shape)}")
     G.load_state_dict({**target, **new}, strict=True)
     return True

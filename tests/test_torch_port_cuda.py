@@ -46,9 +46,20 @@ SPADE_CASES = {
     "skinny_dual": dict(N=2, H=37, W=91, cnc=3, hids=(128, 128),
                         ncs=(40, 40)),
     "hid_24": dict(N=1, H=20, W=33, cnc=3, hids=(24,), ncs=(20,)),
+    # the SPADE mask decoder's conditioning (cond_nc 15 or 12: 16 channels
+    # a window pixel in bf16): its first block's dual call at 80^2, its last
+    # norm_1 at a ragged size, and cnc 9 and 16 at the layout's edges
+    "mask_dual_c15": dict(N=2, H=80, W=80, cnc=15, hids=(128, 128),
+                          ncs=(128, 128)),
+    "mask_nc16_c15": dict(N=1, H=37, W=91, cnc=15, hids=(128,), ncs=(16,)),
+    "mask_dual_c12": dict(N=1, H=40, W=40, cnc=12, hids=(128, 128),
+                          ncs=(64, 64)),
+    "c9_ragged": dict(N=1, H=13, W=21, cnc=9, hids=(128,), ncs=(20,)),
+    "c16_ragged": dict(N=2, H=19, W=35, cnc=16, hids=(96,), ncs=(32,)),
 }
 BF16_CASES = ["head_0", "up_spade_dual", "skinny_nc20", "skinny_nc40",
-              "skinny_dual", "hid_24"]
+              "skinny_dual", "hid_24", "mask_dual_c15", "mask_nc16_c15",
+              "mask_dual_c12", "c9_ragged", "c16_ragged"]
 
 
 def _device():
@@ -126,6 +137,10 @@ def test_spade_cond_rejects_what_it_does_not_take():
                torch.bfloat16)
     with pytest.raises(ValueError):  # the bf16 kernel takes hid <= 128
         spade_cond(*wide)
+    deep = _to(_spade_args(N=1, H=8, W=8, cnc=17, hids=(32,), ncs=(4,)), dev,
+               torch.bfloat16)
+    with pytest.raises(ValueError):  # the bf16 kernel takes cnc <= 16
+        spade_cond(*deep)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -323,6 +338,38 @@ def test_cli_f32_on_the_card_matches_the_cpu():
             within = (lsb <= 1).mean()
             print(f"{name} {event}: within 1 LSB on {100 * within:.4f}%")
             assert within >= 0.999, (name, event, within)
+
+
+def test_spade_masker_infer_on_the_card_matches_the_cpu():
+    """The SPADE mask decoder (gen.m.use_spade, the default cond_nc 15 at
+    full width; its conditioning through spade_cond at cnc 15), random
+    weights from seed 0, at 256^2 in f32 with all three events and the same
+    draws on both devices: the smooth masks within atol 1e-3, each event
+    within 1 LSB on >= 99.9% of values."""
+    from climategan_torch.inference import build_infer_fn
+    from climategan_torch.utils.opts import load_opts
+
+    _device()
+    opts = load_opts(commandline_opts=["gen.m.use_spade=true"])
+    x = torch.rand(1, 256, 256, 3, generator=torch.Generator().manual_seed(2)) * 2 - 1
+    uniform = torch.rand(9, 9, generator=torch.Generator().manual_seed(3))
+    out = {}
+    for where in ("cuda", "cpu"):
+        _, infer = build_infer_fn(opts, dtype=torch.float32, bin_value=-1,
+                                  device=where, seed=0)
+        reset_launches()
+        out[where] = {k: v.cpu() for k, v in
+                      infer(x, uniform=uniform, g_value=120.0).items()}
+        if where == "cuda":
+            assert launches["spade_cond"] == 18 + 6
+    err = (out["cuda"]["mask"] - out["cpu"]["mask"]).abs().max().item()
+    print(f"mask: max abs error {err:.3e}")
+    assert err <= 1e-3
+    for event in ("flood", "wildfire", "smog"):
+        lsb = (out["cuda"][event].int() - out["cpu"][event].int()).abs()
+        within = (lsb <= 1).float().mean().item()
+        print(f"{event}: within 1 LSB on {100 * within:.4f}%")
+        assert within >= 0.999, (event, within)
 
 
 def test_native_builds_from_a_clean_build_dir(tmp_path, monkeypatch):
@@ -581,9 +628,6 @@ REFUSED = {
     "dis.m.gan_type=WGAN_gp": "ROADMAP A.8 remainder",
     "dis.s.gan_type=WGAN_gp": "ROADMAP A.8 remainder",
     "gen.p.diff_aug.use=true": "ROADMAP A.8 remainder",
-    "gen.m.use_spade=true": "ROADMAP A.10",
-    "gen.d.classify.enable=true": "ROADMAP A.10",
-    "gen.d.loss=dada": "ROADMAP A.10",
 }
 
 
@@ -596,6 +640,23 @@ def test_step_builder_refuses_what_is_not_ported(override):
 
     with pytest.raises(ValueError, match=REFUSED[override]):
         StepBuilder(load_opts(commandline_opts=[override]))
+
+
+@pytest.mark.parametrize("override", ["gen.m.use_spade=true",
+                                      "gen.d.classify.enable=true",
+                                      "gen.d.loss=dada"])
+def test_step_builder_builds_it(override):
+    """The options ported with the other generator configurations build
+    a step (no card needed): the SPADE mask decoder, depth classification
+    and the dada depth loss."""
+    from climategan_torch.train_step import StepBuilder
+    from climategan_torch.utils.opts import load_opts
+
+    builder = StepBuilder(load_opts(commandline_opts=[override]))
+    key = override.split("=")[0]
+    assert {"gen.m.use_spade": builder.cfg.m_use_spade,
+            "gen.d.classify.enable": builder.cfg.d_classify,
+            "gen.d.loss": builder.cfg.d_loss == "dada"}[key]
 
 
 def test_step_builder_takes_the_ported_options():

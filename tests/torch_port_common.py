@@ -11,6 +11,7 @@ kernels' edge values from here on a machine without JAX.
 """
 from __future__ import annotations
 
+import functools
 import json
 
 import numpy as np
@@ -295,3 +296,59 @@ def opts_pair(lists, **train):
     for k, v in train.items():
         jopts.train[k] = v
     return jopts, torch_load_opts(default=jopts.to_dict())
+
+
+# ---- the other generator configurations (tests/test_torch_port_configs*.py)
+
+SIZE = 32
+CONFIGS = {
+    "A": {"gen": {"m": {"use_spade": True,
+                        "spade": {"cond_nc": 15, "latent_dim": 32}},
+                  "d": {"architecture": "base"},
+                  "p": {"use_final_shortcut": True}}},
+    "B": {"gen": {"m": {"use_spade": True,
+                        "spade": {"cond_nc": 12, "latent_dim": 32}},
+                  "deeplabv3": {"backbone": "mobilenet"},
+                  "p": {"no_z": False}}},
+    "C": {"gen": {"encoder": {"architecture": "deeplabv2"},
+                  "s": {"architecture": "deeplabv2", "use_dada": False},
+                  "d": {"architecture": "base",
+                        "classify": {"enable": True,
+                                     "linspace": {"min": 0.35, "max": 6.95,
+                                                  "buckets": 8}}},
+                  "m": {"use_dada": False},
+                  "p": {"spade_param_free_norm": "batch"}}},
+}
+
+
+def config_opts(name, size=SIZE):
+    """tiny_opts(size) with configuration ``name`` of CONFIGS."""
+    from climategan_tpu.utils.opts import Opts, merge
+    from climategan_tpu.utils.testing import tiny_opts
+
+    opts = tiny_opts(size)
+    merge(Opts(CONFIGS[name]), opts)
+    return opts
+
+
+@functools.lru_cache(maxsize=None)
+def pair(name):
+    """(JAX G, JAX variables, port G in eval mode, x, JAX encode(x), jitted
+    JAX method caller) of configuration ``name``."""
+    import jax
+
+    jopts = config_opts(name)
+    G, V = jax_variables(jopts, SIZE, seed=5)
+    cfg = GenConfig.from_opts(torch_load_opts(default=jopts.to_dict()))
+    tG = OmniGenerator(cfg)
+    tG.load_state_dict(state_dict_from_jax(V, cfg), strict=True)
+    x = np.random.default_rng(6).uniform(-1, 1, (2, SIZE, SIZE, 3)) \
+        .astype(np.float32)
+
+    @functools.partial(jax.jit, static_argnames=("method",))
+    def call(*args, method):
+        return G.apply(V, *args, method=method)
+
+    return G, V, tG.eval(), x, call(x, method="encode"), call
+
+
