@@ -4,7 +4,8 @@ update (the masker's ADVENT and the painter's GAN, ExtraAdam) at 640x640
 on synthetic batches, under the root ``bench_train.py``'s metric name.
 
     python -m climategan_torch.bench_train [--batch 2] [--size 640]
-        [--feat 160] [--iters 6] [--warmup 2] [key=value ...]
+        [--feat 160] [--iters 6] [--warmup 2] [--remat] [--remat_d]
+        [--policy ""|dots|small_convs[:AREA]] [key=value ...]
 
 The default opts with the ``key=value`` overrides (another generator
 configuration), with their bf16 policy; random weights from seed 0; the
@@ -16,8 +17,10 @@ domain samples of a step once, from the p50 step time), the p50 and every
 step's ms (a synchronise after each step), ``max_memory_allocated``, the
 last step's ``g_loss`` and ``d_loss``, the device kind and the card's name
 and power limit. A card is required: without one it raises, and nothing
-falls back to the CPU. ``--mesh``, ``--remat`` and ``--remat_d`` exit with
-the ROADMAP item that will port them.
+falls back to the CPU. ``--remat``, ``--remat_d`` and ``--policy`` set
+``tpu.remat``, ``tpu.remat_d`` and ``tpu.remat_policy``, as the root
+bench's flags do; ``--mesh`` exits with the ROADMAP item that will port
+it.
 """
 from __future__ import annotations
 
@@ -36,8 +39,6 @@ from climategan_torch.inference import resolve_device
 
 NOT_PORTED = {
     "mesh": "data-parallel training is not ported yet: ROADMAP A.11",
-    "remat": "tpu.remat is not ported yet: ROADMAP A.8 remainder",
-    "remat_d": "tpu.remat_d is not ported yet: ROADMAP A.8 remainder",
 }
 
 
@@ -49,6 +50,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="size of the depth and seg targets")
     ap.add_argument("--iters", type=int, default=6)
     ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--remat", action="store_true",
+                    help="rematerialize the G step's per-domain forwards "
+                         "(tpu.remat)")
+    ap.add_argument("--remat_d", action="store_true",
+                    help="also rematerialize the D step's (tpu.remat_d)")
+    ap.add_argument("--policy", default="",
+                    help="tpu.remat_policy: '' (full remat), 'dots' (save "
+                         "every conv/matmul output), 'small_convs[:AREA]' "
+                         "(save those of convs whose input area is <= AREA "
+                         "px, default 160*160)")
     for flag, why in NOT_PORTED.items():
         ap.add_argument(f"--{flag}", action="store_true",
                         help="not ported: " + why)
@@ -66,13 +77,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def step_opts(args: argparse.Namespace):
+    """The default opts with the flags' ``tpu`` keys and the ``key=value``
+    overrides."""
+    from climategan_torch.utils.opts import load_opts
+
+    return load_opts(commandline_opts=[
+        f"tpu.remat={str(args.remat).lower()}",
+        f"tpu.remat_d={str(args.remat_d).lower()}",
+        f"tpu.remat_policy={args.policy!r}", *args.opts])
+
+
 def synthetic_batch(n: int, size: int, feat: int, device,
-                    buckets: int = 0) -> Dict[str, Dict[str, torch.Tensor]]:
+                    buckets: int = 0,
+                    seed: int = 0) -> Dict[str, Dict[str, torch.Tensor]]:
     """The root bench_train.py's batch, drawn as it draws it (numpy
-    RandomState(0)), in the port's layout: NCHW images in [-1, 1],
-    binary masks, depth targets (with ``buckets``, int64 bucket indices
-    drawn after the rest) and int64 seg labels at ``feat``."""
-    r = np.random.RandomState(0)
+    RandomState(0), or ``seed``), in the port's layout: NCHW images in
+    [-1, 1], binary masks, depth targets (with ``buckets``, int64 bucket
+    indices drawn after the rest) and int64 seg labels at ``feat``."""
+    r = np.random.RandomState(seed)
 
     def img(*s):
         return r.uniform(-1, 1, s).astype(np.float32)
@@ -110,10 +133,9 @@ def metric_name(size: int) -> str:
 
 def run_bench(args) -> dict:
     from climategan_torch.train_step import StepBuilder
-    from climategan_torch.utils.opts import load_opts
 
     device = resolve_device("cuda")
-    builder = StepBuilder(load_opts(commandline_opts=args.opts))
+    builder = StepBuilder(step_opts(args))
     state = builder.init_state(0, device)
     batch = synthetic_batch(args.batch, args.size, args.feat, device,
                             state.G.cfg.d_classify_buckets)
@@ -135,6 +157,7 @@ def run_bench(args) -> dict:
         "p50_step_ms": round(p50 * 1e3, 2),
         "step_ms": [round(t * 1e3, 2) for t in times],
         "per_domain_batch": args.batch,
+        "remat": [args.remat, args.remat_d, args.policy],
         "max_memory_allocated": torch.cuda.max_memory_allocated(device),
         "g_loss": round(float(metrics["g_total"]), 4),
         "d_loss": round(float(metrics["d_total"]), 4),

@@ -264,6 +264,20 @@ def advent_loss(prob: torch.Tensor, target: float,
     return wgan_domain_loss(d_out, target)
 
 
+def wgan_gp(disc_fn: Callable[[torch.Tensor], torch.Tensor],
+            x: torch.Tensor) -> torch.Tensor:
+    """WGAN gradient penalty: the gradient of ``sum(disc_fn(x))`` with
+    respect to ``x``, then the mean over samples of ``(||g||_2 - 1)^2``
+    (the norm as ``sqrt(sum g^2 + 1e-12)``). ``x`` enters detached; the
+    gradient keeps its graph, so the penalty is differentiable in the
+    discriminator's parameters (reference tutils.py:487-501)."""
+    x = x.detach().requires_grad_(True)
+    (g,) = torch.autograd.grad(disc_fn(x).sum(), x, create_graph=True)
+    norms = torch.sqrt(torch.sum(g.reshape(g.shape[0], -1) ** 2, dim=1)
+                       + 1e-12)
+    return torch.mean((norms - 1.0) ** 2)
+
+
 # --------------------------------------------------------------------------
 # VGG19 perceptual loss
 # --------------------------------------------------------------------------

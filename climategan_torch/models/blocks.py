@@ -192,7 +192,9 @@ class SPADEResnetBlock(nn.Module):
     conditioning input (the JAX package fuses the two only for instance
     norms; the values are the same). Packs are made on the first eval
     forward (or by ``pack_weights``) and again when the weights have moved
-    to another device or dtype; a mode switch and a weight load drop them.
+    to another device, or the conditioning comes in another dtype (f32
+    weights under bf16 autocast pack in bf16); a mode switch and a weight
+    load drop them.
     ``last_activation="lrelu"`` ends the block with a leaky relu (the SPADE
     mask decoder's blocks)."""
 
@@ -225,9 +227,11 @@ class SPADEResnetBlock(nn.Module):
             self.norm_0.pack_weights()
         self.norm_1.pack_weights()
 
-    def current_shortcut_pack(self):
-        if not pack_fits(self.shortcut_pack, self.norm_s.mlp_shared[0].weight):
-            self.shortcut_pack = pack_dual(self.norm_s, self.norm_0)
+    def current_shortcut_pack(self, dtype: torch.dtype):
+        """The dual pack of norm_s and norm_0 in ``dtype`` (a seg's)."""
+        if not pack_fits(self.shortcut_pack, self.norm_s.mlp_shared[0].weight,
+                         dtype):
+            self.shortcut_pack = pack_dual(self.norm_s, self.norm_0, dtype)
         return self.shortcut_pack
 
     def train(self, mode: bool = True):
@@ -253,7 +257,7 @@ class SPADEResnetBlock(nn.Module):
         if self.learned_shortcut:
             x_s, dx = dual_spade(x, seg, self.norm_s, self.norm_0,
                                  None if train else
-                                 self.current_shortcut_pack())
+                                 self.current_shortcut_pack(seg.dtype))
             x_s = self.conv_s(x_s, update_sn)
         else:
             x_s, dx = x, norm(self.norm_0, x)

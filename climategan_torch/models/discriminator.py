@@ -10,7 +10,7 @@
     ``s_advent``.
 
 Module names follow the JAX ones (``p.discriminator_{i}.conv{k}``,
-``m_advent.conv{i}``), with the port's spectral-conv keys
+``p_global``/``p_local`` in its place, ``m_advent.conv{i}``), with the port's spectral-conv keys
 (``.module.weight_bar`` etc.). Every spectral conv takes ``update_sn`` as
 the generator's do.
 """
@@ -153,21 +153,26 @@ class DisConfig:
 
 
 class OmniDiscriminator(nn.Module):
-    """``p`` (the painter's, over [mask | image], 4 channels), ``m_advent``
-    (2 channels) and ``s_advent`` (the seg classes), as the config asks.
-    The local/global painter pair is not ported (``StepBuilder`` refuses
-    it)."""
+    """``p`` (the painter's, over [mask | image], 4 channels) or, with
+    ``dis.p.use_local_discriminator``, ``p_global`` and ``p_local`` (over
+    images, 3 channels: the painter's output and its masked part),
+    ``m_advent`` (2 channels) and ``s_advent`` (the seg classes), as the
+    config asks."""
 
     def __init__(self, cfg: DisConfig = DisConfig()):
         super().__init__()
         self.cfg = c = cfg
         if "p" in c.tasks:
+            def multiscale(input_nc):
+                return MultiscaleDiscriminator(
+                    input_nc, c.p_num_D, c.p_ndf, c.p_n_layers, c.p_norm,
+                    c.p_use_sigmoid, c.p_get_intermediate_features)
+
             if c.p_use_local:
-                raise ValueError("dis.p.use_local_discriminator is not ported "
-                                 "(ROADMAP A.8 remainder)")
-            self.p = MultiscaleDiscriminator(
-                4, c.p_num_D, c.p_ndf, c.p_n_layers, c.p_norm,
-                c.p_use_sigmoid, c.p_get_intermediate_features)
+                self.p_global = multiscale(3)
+                self.p_local = multiscale(3)
+            else:
+                self.p = multiscale(4)
         if "m" in c.tasks and c.m_use_advent:
             self.m_advent = FCDiscriminator(2, use_norm=c.m_wgan_norm)
         if "s" in c.tasks and c.s_use_advent:
@@ -176,6 +181,12 @@ class OmniDiscriminator(nn.Module):
 
     def disc_p(self, x, update_sn: bool = False):
         return self.p(x, update_sn)
+
+    def disc_p_global(self, x, update_sn: bool = False):
+        return self.p_global(x, update_sn)
+
+    def disc_p_local(self, x, update_sn: bool = False):
+        return self.p_local(x, update_sn)
 
     def disc_m(self, x, update_sn: bool = False):
         return self.m_advent(x, update_sn)

@@ -25,7 +25,11 @@ from climategan_torch.models.deeplab_v2 import DeeplabV2Encoder, DeepLabV2Decode
 from climategan_torch.models.depth import BaseDepthDecoder, DADADepthDecoder
 from climategan_torch.models.masker import MaskBaseDecoder, MaskSpadeDecoder
 from climategan_torch.models.mobilenet import MobileNetV2Encoder
-from climategan_torch.models.norms import init_weights, nhwc
+from climategan_torch.models.norms import (
+    init_weights,
+    nhwc,
+    running_statistics,
+)
 from climategan_torch.models.painter import PainterSpadeDecoder
 from climategan_torch.models.resnet import ResNetEncoder
 from climategan_torch.ops.image import normalize
@@ -289,16 +293,27 @@ class OmniGenerator(nn.Module):
 
     def paint(self, m, x, no_paste: bool = False, update_sn: bool = False,
               z: Optional[torch.Tensor] = None,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None,
+              frozen: bool = False):
         """painter(x * (1 - m)), then the paste of x outside the mask; the
         gradient reaches the painter through the paste. A painter with z
-        takes ``z`` or draws it (``sample_painter_z``)."""
+        takes ``z`` or draws it (``sample_painter_z``). ``frozen`` (pl4m):
+        a train-mode painter runs with eval semantics (running statistics,
+        no u/v stored) on its parameters detached, on the plain convs of
+        train mode, so the gradient reaches m and x only."""
         m = m.to(x.dtype)
         if not self.cfg.p_no_z and z is None:
             z = self.sample_painter_z(x.shape[0], x.shape[2], x.shape[3],
                                       x.dtype, x.device, generator)
-        fake = self.painter(x * (1.0 - m), update_sn,
-                            z=None if z is None else z.to(x.dtype))
+        z = None if z is None else z.to(x.dtype)
+        if frozen and self.painter.training:
+            params = {k: p.detach()
+                      for k, p in self.painter.named_parameters()}
+            with running_statistics(self.painter):
+                fake = torch.func.functional_call(
+                    self.painter, params, (x * (1.0 - m),), {"z": z})
+        else:
+            fake = self.painter(x * (1.0 - m), update_sn, z=z)
         if self.cfg.p_paste_original_content and not no_paste:
             return paste(x, fake, m)
         return fake

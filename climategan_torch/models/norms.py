@@ -18,12 +18,15 @@ conditioning runs as plain convs (the kernel has no backward). Switching
 modes refreshes what the eval mode reads: ``train(False)`` re-bakes every
 spectral kernel (a buffer, which then moves and casts with the module) and
 either mode drops the SPADE packs; an eval-mode forward packs on first use
-and again when the weights have moved to another device or dtype.
+and again when the weights have moved to another device or the
+conditioning comes in another dtype (f32 weights under bf16 autocast pack
+in bf16, as a bf16 model's do).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -224,7 +227,7 @@ class SPADE(nn.Module):
     Eval mode (``forward``, NHWC ``seg``): the ``spade_cond`` kernel, on
     weights packed by ``pack_weights`` (``pack_spade_weights`` packs a
     whole model up front); without a pack that fits the weights' device
-    and dtype, the forward packs and keeps the pack. A mode switch and a
+    and the seg's dtype, the forward packs and keeps the pack. A mode switch and a
     weight load drop it. Train mode (``forward_train``, NCHW ``seg``): the
     convs of ``mlp_shared``, ``mlp_gamma`` and ``mlp_beta`` on the live
     parameters."""
@@ -252,16 +255,18 @@ class SPADE(nn.Module):
         return (self.mlp_gamma.weight.permute(2, 3, 1, 0), self.mlp_gamma.bias,
                 self.mlp_beta.weight.permute(2, 3, 1, 0), self.mlp_beta.bias)
 
-    def pack_weights(self) -> SpadePack:
+    def pack_weights(self, dtype: Optional[torch.dtype] = None) -> SpadePack:
+        """Packs the weights, cast to ``dtype`` where it is given."""
         k1, b1 = self.shared_weights()
-        self.pack = make_pack(pack_spade_cond, k1, b1, [self.branch()])
+        self.pack = make_pack(pack_spade_cond, *cast_weights(
+            dtype, k1, b1, [self.branch()]))
         return self.pack
 
-    def current_pack(self) -> SpadePack:
-        """The pack of the current weights, made if there is none that
-        fits their device and dtype."""
-        if not pack_fits(self.pack, self.mlp_shared[0].weight):
-            self.pack_weights()
+    def current_pack(self, dtype: torch.dtype) -> SpadePack:
+        """The pack of the current weights in ``dtype`` (a seg's), made if
+        there is none that fits their device and that dtype."""
+        if not pack_fits(self.pack, self.mlp_shared[0].weight, dtype):
+            self.pack_weights(dtype)
         return self.pack
 
     def train(self, mode: bool = True):
@@ -287,7 +292,7 @@ class SPADE(nn.Module):
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
         """``seg``: NHWC conditioning map already at x's spatial size."""
-        (gb,) = spade_cond_packed(seg, self.current_pack())
+        (gb,) = spade_cond_packed(seg, self.current_pack(seg.dtype))
         return self.modulate(self.normalize(x), gb)
 
     def forward_train(self, x: torch.Tensor, seg: torch.Tensor,
@@ -308,20 +313,53 @@ def make_pack(pack_fn, *args) -> SpadePack:
         return pack_fn(*args)
 
 
-def pack_fits(pack: Optional[SpadePack], weight: torch.Tensor) -> bool:
+def cast_weights(dtype: Optional[torch.dtype], k1: torch.Tensor,
+                 b1: torch.Tensor, branches):
+    """``(k1, b1, branches)`` cast to ``dtype``, or as they are for None:
+    f32 weights run in bf16 when an autocast forward gives a bf16 seg."""
+    if dtype is None:
+        return k1, b1, branches
+    return (k1.to(dtype), b1.to(dtype),
+            [tuple(t.to(dtype) for t in b) for b in branches])
+
+
+def pack_fits(pack: Optional[SpadePack], weight: torch.Tensor,
+              dtype: torch.dtype) -> bool:
     """Whether ``pack`` exists and was made from weights on ``weight``'s
-    device and in its dtype."""
+    device, in ``dtype``."""
     return (pack is not None and pack.args[0].device == weight.device
-            and pack.args[0].dtype == weight.dtype)
+            and pack.args[0].dtype == dtype)
 
 
-def pack_dual(norm_a: SPADE, norm_b: SPADE) -> SpadePack:
+def pack_dual(norm_a: SPADE, norm_b: SPADE,
+              dtype: Optional[torch.dtype] = None) -> SpadePack:
     """One pack for two SPADEs over the same seg: the two mlp_shared convs
-    concatenated, one branch each."""
+    concatenated, one branch each; cast to ``dtype`` where it is given."""
     ka, ba = norm_a.shared_weights()
     kb, bb = norm_b.shared_weights()
-    return make_pack(pack_spade_cond, torch.cat([ka, kb], dim=-1),
-                     torch.cat([ba, bb]), [norm_a.branch(), norm_b.branch()])
+    return make_pack(pack_spade_cond, *cast_weights(
+        dtype, torch.cat([ka, kb], dim=-1), torch.cat([ba, bb]),
+        [norm_a.branch(), norm_b.branch()]))
+
+
+@contextlib.contextmanager
+def running_statistics(module: nn.Module) -> Iterator[None]:
+    """Inside the block, the batch norms of ``module`` that are in train
+    mode normalize by their running statistics and leave them as they are,
+    as in eval mode, while every other layer stays in train mode: spectral
+    convs run their power iteration on the live weights (storing nothing
+    without ``update_sn``) and SPADEs their plain convs, all under
+    autograd. The JAX step's painter for pl4m (``G.apply(..., train=False)``)
+    computes this."""
+    norms = [m for m in module.modules()
+             if isinstance(m, nn.BatchNorm2d) and m.training]
+    for m in norms:
+        m.training = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.training = True
 
 
 def dual_spade(x: torch.Tensor, seg: torch.Tensor, norm_a: SPADE,

@@ -15,10 +15,12 @@ panels) in eval mode, then a checkpoint in the reference ``.pth`` layout.
 Unlike the JAX trainer, nothing here catches an exception raised by a
 forward or a kernel: the evaluation and its panels run ``spade_cond`` and
 ``masked_blend``, and a failure there stops the run. Only an optional
-logger (comet, the PNG writer) is skipped when absent. Options that are
-not ported raise a ``ValueError`` at ``setup`` naming their ROADMAP item:
-``train.fid.enable`` (A.9), spatial shards or a mesh over several devices
-(A.11); an orbax run dir raises where it would be loaded (A.11).
+logger (comet, the PNG writer) is skipped when absent. With
+``train.fid.enable`` the evaluation also logs the painter's FID
+(``compute_val_fid``). Options that are not ported raise a ``ValueError``
+at ``setup`` naming their ROADMAP item: spatial shards or a mesh over
+several devices (A.11); an orbax run dir raises where it would be loaded
+(A.11).
 
 Each epoch adds one record to ``train.jsonl``: the steps, the epoch's
 seconds, the seconds spent waiting on the loader and each step's host
@@ -61,9 +63,6 @@ def refuse_unported_trainer(opts) -> None:
     """Raises a ``ValueError`` naming its ROADMAP item for each trainer
     option this port does not have."""
     tpu = opts.get("tpu", {}) or {}
-    if opts.train.fid.get("enable", False):
-        raise ValueError("train.fid.enable: FID is not ported to the PyTorch "
-                         "trainer yet (ROADMAP A.9)")
     if int(tpu.get("spatial_shards", 1) or 1) > 1:
         raise ValueError("tpu.spatial_shards > 1: row-sharded training is "
                          "not ported yet (ROADMAP A.11)")
@@ -373,6 +372,9 @@ class Trainer:
                 accum[k] = accum.get(k, 0.0) + float(v)
             n += 1
         metrics = {k: v / max(n, 1) for k, v in accum.items()}
+        if (self.opts.train.fid.get("enable", False)
+                and "p" in self.opts.tasks):
+            metrics["val/fid"] = self.compute_val_fid()
         self._log_eval_panels()
         self.log_eval_images()
         self.logger.log_metrics(metrics)
@@ -457,6 +459,51 @@ class Trainer:
                 panels.append(_nhwc((G.paint(m, x) + 1) / 2))
         self.logger.log_images("val_panel", np.concatenate(panels, axis=2),
                                step=self.global_step)
+
+    def compute_val_fid(self, max_images: Optional[int] = None) -> float:
+        """The painter's FID on the val rf images (reference
+        fid.py:334-434): the first ``train.fid.n_images`` (or
+        ``max_images``) of the rf loader, painted by the eval G (the
+        validation painter where one is loaded) in batches of
+        ``train.fid.paint_batch_size``, in f32 (``spade_cond`` and
+        ``masked_blend`` on a card); the Inception of
+        ``opts.inception_weights`` where the file exists, else random from
+        seed 0 (a relative FID); real and painted features in batches of
+        ``train.fid.batch_size``. NaN without an rf loader or the
+        painter."""
+        from climategan_torch.fid import FIDEvaluator, InceptionV3Features
+
+        fid_opts = self.opts.train.fid
+        rf = (self.loaders or {}).get("val", {}).get("rf")
+        if rf is None or "p" not in self.opts.tasks:
+            return float("nan")
+        n_images = max_images or int(fid_opts.get("n_images", 57))
+        xs, ms, n = [], [], 0
+        for item in rf:
+            t = to_step_batch({k: item["data"][k] for k in ("x", "m")},
+                              self.device)
+            xs.append(t["x"])
+            ms.append(t["m"])
+            n += t["x"].shape[0]
+            if n >= n_images:
+                break
+        if not xs:
+            return float("nan")
+        x, m = torch.cat(xs)[:n_images], torch.cat(ms)[:n_images]
+        paint_bs = int(fid_opts.get("paint_batch_size", 8))
+        with self._eval_G(val_painter=True) as G:
+            fake = torch.cat([G.paint(m[i:i + paint_bs], x[i:i + paint_bs])
+                              for i in range(0, x.shape[0], paint_bs)])
+        model = None
+        w = _path_opt(self.opts.get("inception_weights"))
+        if w is not None and w.exists():
+            from climategan_torch.utils.convert import load_inception_weights
+
+            model = load_inception_weights(str(w), InceptionV3Features())
+        ev = FIDEvaluator(model, int(fid_opts.get("batch_size", 50)),
+                          self.device)
+        ev.set_real(x)
+        return ev.fid(fake)
 
     def paint_and_mask(self, image_batch, mask_batch=None,
                        resolution: str = "approx") -> torch.Tensor:

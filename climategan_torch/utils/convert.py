@@ -12,8 +12,9 @@ only the statistics.
 It is the inverse of the JAX package's reference -> JAX converter, and
 carries everything a train-mode model reads (running statistics, u/v).
 ``d_state_dict_from_jax(variables, dcfg)`` does the same for the
-discriminators, and ``vgg_state_dict_from_jax(variables)`` for the JAX
-package's ``VGG19Features`` (into torchvision's ``features.{i}`` keys).
+discriminators, ``vgg_state_dict_from_jax(variables)`` for the JAX
+package's ``VGG19Features`` (into torchvision's ``features.{i}`` keys) and
+``inception_state_dict_from_jax(variables)`` for its FID Inception.
 
 ``load_torch_state_dict(path)`` reads a released reference checkpoint and
 ``state_dict_from_reference(sd, cfg)`` turns its G state dict into exactly
@@ -300,10 +301,13 @@ def d_entries(dcfg: DisConfig) -> Iterator[Tuple[str, Path]]:
     """(torch key prefix, JAX path) of every conv of the discriminators;
     the module names are the same on both sides."""
     if "p" in dcfg.tasks:
-        for i in range(dcfg.p_num_D):
-            q = ("p", f"discriminator_{i}")
-            for k in [f"conv{n}" for n in range(dcfg.p_n_layers + 1)] + ["conv_out"]:
-                yield ".".join(q + (k,)), q + (k,)
+        names = ("p_global", "p_local") if dcfg.p_use_local else ("p",)
+        for name in names:
+            for i in range(dcfg.p_num_D):
+                q = (name, f"discriminator_{i}")
+                for k in ([f"conv{n}" for n in range(dcfg.p_n_layers + 1)]
+                          + ["conv_out"]):
+                    yield ".".join(q + (k,)), q + (k,)
     for name, on in (("m_advent", dcfg.m_use_advent and "m" in dcfg.tasks),
                      ("s_advent", dcfg.s_use_advent and "s" in dcfg.tasks)):
         if on:
@@ -551,6 +555,51 @@ def maybe_load_pretrained_backbone(opts, G: OmniGenerator) -> bool:
                              f"the model {tuple(target[k].shape)}")
     G.load_state_dict({**target, **new}, strict=True)
     return True
+
+
+def inception_state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``InceptionV3Features`` variables (numpy) -> the
+    port's ``fid.InceptionV3Features`` state dict (torchvision's keys): a
+    walk over every conv + batch-norm pair, the inverse of the JAX
+    ``load_inception_weights``."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path: Path):
+        if "conv" in node and "bn" in node:
+            key = ".".join(path)
+            _conv(sd, params, {}, f"{key}.conv", path + ("conv",))
+            bn, st = node["bn"], _get(stats, path + ("bn",))
+            sd[f"{key}.bn.weight"] = _tensor(bn["scale"])
+            sd[f"{key}.bn.bias"] = _tensor(bn["bias"])
+            sd[f"{key}.bn.running_mean"] = _tensor(st["mean"])
+            sd[f"{key}.bn.running_var"] = _tensor(st["var"])
+            sd[f"{key}.bn.num_batches_tracked"] = torch.zeros((),
+                                                              dtype=torch.long)
+            return
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk(v, path + (k,))
+
+    walk(params, ())
+    return sd
+
+
+def load_inception_weights(path, model: torch.nn.Module) -> torch.nn.Module:
+    """A torchvision or pytorch-fid inception_v3 state dict into
+    ``fid.InceptionV3Features`` (whose keys are torchvision's): every key
+    of the model from the file (the file's classifier and auxiliary head
+    are not read; a missing ``num_batches_tracked`` keeps the model's)."""
+    sd = load_torch_state_dict(path)
+    own = model.state_dict()
+    missing = [k for k in own
+               if k not in sd and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"{path}: {len(missing)} Inception keys missing, "
+                       f"e.g. {missing[:3]}")
+    model.load_state_dict({k: torch.as_tensor(sd.get(k, v))
+                           for k, v in own.items()}, strict=True)
+    return model
 
 
 def load_vgg19_weights(path, vgg: torch.nn.Module) -> torch.nn.Module:

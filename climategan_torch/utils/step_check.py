@@ -44,7 +44,9 @@ from typing import Dict, Mapping, Optional
 import torch
 import torch.nn as nn
 
-STATS = ("running_mean", "running_var", "weight_u", "weight_v")
+from climategan_torch.train_step import STATE_BUFFERS
+
+STATS = STATE_BUFFERS
 NOISE_FLOOR = 3e-5
 VALUE_FLOOR = 3e-4
 

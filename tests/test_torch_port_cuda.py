@@ -619,27 +619,70 @@ def test_eval_after_a_train_step_on_the_card_serves_the_trained_weights():
         assert not torch.equal(a, untrained.paint(m, x))
 
 
-REFUSED = {
-    "train.grad_accumulation=2": "ROADMAP A.8 remainder",
-    "tpu.remat=true": "ROADMAP A.8 remainder",
-    "tpu.remat_d=true": "ROADMAP A.8 remainder",
-    "dis.p.use_local_discriminator=true": "ROADMAP A.8 remainder",
-    "gen.m.use_pl4m=true": "ROADMAP A.8 remainder",
-    "dis.m.gan_type=WGAN_gp": "ROADMAP A.8 remainder",
-    "dis.s.gan_type=WGAN_gp": "ROADMAP A.8 remainder",
-    "gen.p.diff_aug.use=true": "ROADMAP A.8 remainder",
+# the step's options (ported with the rest of the step; CPU tests against
+# the JAX package: tests/test_torch_port_step_options.py)
+DIFF_AUG = ["gen.p.diff_aug.use=true", "gen.p.diff_aug.do_color_jittering=true",
+            "gen.p.diff_aug.do_cutout=true", "gen.p.diff_aug.do_translation=true"]
+# option: (overrides, per-domain batch, masked_blend launches of g_step and
+# of d_step: a paste per painter forward, pl4m's included, a rematerialized
+# one twice)
+STEP_OPTIONS = {
+    "grad_accumulation": (["train.grad_accumulation=2"], 4, (2, 2)),
+    "remat": (["tpu.remat=true"], 2, (2, 1)),
+    "remat_d": (["tpu.remat_d=true", "tpu.remat_policy=dots"], 2, (1, 2)),
+    "local_discriminator": (["dis.p.use_local_discriminator=true"], 2, (1, 1)),
+    "pl4m": (["gen.m.use_pl4m=true"], 2, (2, 1)),
+    "m_WGAN_gp": (["dis.m.gan_type=WGAN_gp"], 2, (1, 1)),
+    "s_WGAN_gp": (["dis.s.gan_type=WGAN_gp"], 2, (1, 1)),
+    "diff_aug": (DIFF_AUG, 2, (1, 1)),
 }
 
 
-@pytest.mark.parametrize("override", sorted(REFUSED))
-def test_step_builder_refuses_what_is_not_ported(override):
-    """Each option whose branch of the JAX step is not ported raises a
-    ValueError naming its ROADMAP item (no card needed)."""
+@pytest.mark.parametrize("option", sorted(STEP_OPTIONS))
+def test_step_option_on_the_card(option):
+    """Each option's tiny g_step and d_step on the card against the CPU
+    (f32, TF32 off; the CPU's convs with oneDNN off) from one state, with
+    the same draws: every loss within 1e-4 relative; the G step launches
+    masked_blend once per paste (pl4m's and the painter's, each
+    micro-batch's, a rematerialized forward's again) and never
+    spade_cond."""
+    import copy
+
+    from climategan_torch.bench_train import synthetic_batch
     from climategan_torch.train_step import StepBuilder
     from climategan_torch.utils.opts import load_opts
+    from climategan_torch.utils.step_check import TINY_OVERRIDES, TINY_SIZE
 
-    with pytest.raises(ValueError, match=REFUSED[override]):
-        StepBuilder(load_opts(commandline_opts=[override]))
+    dev = _device()
+    overrides, n, pastes = STEP_OPTIONS[option]
+    builder = StepBuilder(load_opts(path=TINY_OVERRIDES,
+                                    commandline_opts=overrides))
+    cpu = builder.init_state(seed=0, device="cpu")
+    card = builder.state_for(copy.deepcopy(cpu.G).to(dev),
+                             copy.deepcopy(cpu.D).to(dev))
+    batch = synthetic_batch(n, TINY_SIZE, 32, "cpu")
+    batch_dev = {d: {k: v.to(dev) for k, v in b.items()}
+                 for d, b in batch.items()}
+    micro = {d: {k: v[:n // builder.grad_accumulation] for k, v in b.items()}
+             for d, b in batch.items()}
+    for i, (name, draws) in enumerate((("g_step", (0.05, False)),
+                                       ("d_step", (0.1, False)))):
+        aug = builder.aug_draws(cpu, micro)
+        reset_launches()
+        _, m_dev = getattr(builder, name)(card, batch_dev, draws=draws,
+                                          aug=aug)
+        torch.cuda.synchronize()
+        assert launches["spade_cond"] == 0
+        assert launches["masked_blend"] == pastes[i], (option, name)
+        with torch.backends.mkldnn.flags(enabled=False):
+            _, m_cpu = getattr(builder, name)(cpu, batch, draws=draws,
+                                              aug=aug)
+        assert set(m_dev) == set(m_cpu)
+        for k, v in m_cpu.items():
+            a, b = float(m_dev[k]), float(v)
+            assert abs(a - b) <= 1e-4 * abs(b) + 1e-9, (option, name, k, a, b)
+        card.G.load_state_dict(cpu.G.state_dict())
+        card.D.load_state_dict(cpu.D.state_dict())
 
 
 @pytest.mark.parametrize("override", ["gen.m.use_spade=true",

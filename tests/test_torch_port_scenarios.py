@@ -3,11 +3,11 @@
 DeepLab v2 and painter-with-z scenarios, through the port's training step
 at 32^2 on the CPU, with no JAX step.
 
-Each entry either takes one ``train_step`` (g_step, then d_step) with
-finite losses and moved parameters in every model it updates, as
-``test_scenario_trains`` asserts of the JAX step, or raises a
-``ValueError`` naming its ROADMAP item: only the entries of ROADMAP A.8's
-remainder (diff-aug, pl4m) may.
+Each entry takes one ``train_step`` (g_step, then d_step) with finite
+losses and moved parameters in every model it updates, as
+``test_scenario_trains`` asserts of the JAX step; none is refused any more
+(the painter's diff-aug and pl4m were the last, ported with the rest of
+the step's options).
 """
 import pytest
 import torch
@@ -25,8 +25,6 @@ EXTRA = [
              "s": {"architecture": "deeplabv2"}}},
     {"__doc": "painter with sampled z", "gen": {"p": {"no_z": False}}},
 ]
-REFUSED = {"painter diff-aug": "ROADMAP A.8 remainder",
-           "pl4m end-to-end": "ROADMAP A.8 remainder"}
 ALL = SCENARIOS + EXTRA
 
 
@@ -35,10 +33,6 @@ def test_scenario_trains_or_names_its_roadmap_item(scenario):
     jopts = _opts_for(scenario)
     opts = load_opts(default=jopts.to_dict())
     doc = scenario["__doc"]
-    if doc in REFUSED:
-        with pytest.raises(ValueError, match=REFUSED[doc]):
-            StepBuilder(opts)
-        return
     builder = StepBuilder(opts)
     state = builder.init_state(0, "cpu")
     G, D = state.G, state.D

@@ -235,13 +235,65 @@ def test_eval_losses_match_jax(run):
     assert G.training and D.training
 
 
+# the painter's validation losses in bf16 against JAX's, relative: the
+# painter runs in bf16 on both sides (XLA's bf16 convs; the port's bf16
+# spade_cond packs, their plain version here), so the losses differ by the
+# two painters' bf16 roundings (unit roundoff 3.9e-3): measured 1.47e-3 on
+# p_gan, 6.1e-4 on p_featmatch, 4.6e-4 on the total (CPU, one thread)
+BF16_EVAL_RTOL = 1e-2
+
+
+def test_eval_losses_bf16_match_jax(run):
+    """With ``train.bf16`` the validation painter runs in bf16, as JAX's
+    ``eval_losses`` casts it (the masker stays f32): the rf losses against
+    JAX's at a bf16 tolerance, and not equal to the f32 painter's."""
+    jopts = tiny_opts(SIZE)
+    jopts.train.bf16 = True
+    jopts.tpu.painter_s2d = False
+    prev = jax_norms.FUSED_REFLECT
+    jax_norms.FUSED_REFLECT = False
+    try:
+        jb = JaxStepBuilder(jopts)
+        rf = {"rf": run["batch"]["rf"]}
+        want = jax.tree_util.tree_map(np.asarray, jax.jit(jb.eval_losses)(
+            run["states"][0], rf))
+    finally:
+        jax_norms.FUSED_REFLECT = prev
+    topts = load_opts(default=jopts.to_dict())
+    G, D = _models(topts, run["states"][0])
+    builder = StepBuilder(topts)
+    assert builder.cfg.bf16
+    got = builder.eval_losses(builder.state_for(G, D), port_batch(rf),
+                              draws=run["eval_draws"])
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(float(got[k]), float(v),
+                                   rtol=BF16_EVAL_RTOL, err_msg=k)
+    f32 = run["metrics"][2]
+    assert float(got["val_p_featmatch"]) != float(f32["val_p_featmatch"])
+    assert G.training and D.training
+
+
 @pytest.mark.parametrize("flag", ["--mesh", "--remat", "--remat_d"])
 def test_bench_train_refuses_what_is_not_ported(flag, capsys):
+    """``--mesh`` exits naming ROADMAP A.11; ``--remat`` and ``--remat_d``
+    (ported) parse into ``tpu.remat`` and ``tpu.remat_d``, with
+    ``--policy`` into ``tpu.remat_policy``."""
     from climategan_torch import bench_train
 
-    with pytest.raises(SystemExit):
-        bench_train.parse_args([flag])
-    assert "ROADMAP A." in capsys.readouterr().err
+    if flag == "--mesh":
+        with pytest.raises(SystemExit):
+            bench_train.parse_args([flag])
+        assert "ROADMAP A.11" in capsys.readouterr().err
+        return
+    opts = bench_train.step_opts(bench_train.parse_args(
+        [flag, "--policy", "dots"]))
+    assert opts.tpu.remat == (flag == "--remat")
+    assert opts.tpu.remat_d == (flag == "--remat_d")
+    assert opts.tpu.remat_policy == "dots"
+    builder = StepBuilder(opts)
+    assert (builder.remat, builder.remat_d) == (opts.tpu.remat,
+                                                opts.tpu.remat_d)
 
 
 def test_bench_train_batch_is_the_root_benchs():

@@ -18,6 +18,7 @@ tests/test_torch_port_train.py; here the trainer is held to the port's own
     writes both files and ``-r`` resolves the newest; partial loads take
     the JAX trainer's groups; the port's ``latest_ckpt.pth`` loads into
     the JAX generator, whose masker then equals the port's within 1e-5;
+  * with ``train.fid.enable`` the evaluation logs the painter's FID;
   * the options not ported raise, naming their ROADMAP item; the CLI runs
     one epoch.
 """
@@ -399,8 +400,45 @@ def test_a_port_checkpoint_loads_into_the_jax_generator(run, jax_gen):
         assert err <= 1e-5, (name, err)
 
 
+def test_evaluation_logs_the_painters_fid(run, monkeypatch):
+    """With ``train.fid.enable`` the evaluation logs a finite ``val/fid``:
+    ``compute_val_fid`` hands its evaluator the first
+    ``train.fid.n_images`` val rf images (2 here) and the eval G's paints
+    of them, and logs what the evaluator returns."""
+    from climategan_torch import fid
+
+    trainer = run.trainer
+    monkeypatch.setitem(trainer.opts.train.fid, "enable", True)
+    seen, logged = {}, []
+    real_set, real_fid = fid.FIDEvaluator.set_real, fid.FIDEvaluator.fid
+
+    def set_real(self, images):
+        seen["real"] = images.clone()
+        return real_set(self, images)
+
+    def fid_of(self, images):
+        seen["fake"] = images.clone()
+        seen["fid"] = real_fid(self, images)
+        return seen["fid"]
+
+    monkeypatch.setattr(fid.FIDEvaluator, "set_real", set_real)
+    monkeypatch.setattr(fid.FIDEvaluator, "fid", fid_of)
+    monkeypatch.setattr(trainer.logger, "log_metrics", logged.append)
+    metrics = trainer.run_evaluation()
+    assert np.isfinite(metrics["val/fid"]) and metrics["val/fid"] > 0
+    assert metrics["val/fid"] == seen["fid"]
+    assert any(rec.get("val/fid") == seen["fid"] for rec in logged)
+    item = next(iter(trainer.loaders["val"]["rf"]))
+    x = torch.from_numpy(item["data"]["x"][:2]).permute(0, 3, 1, 2)
+    m = torch.from_numpy(item["data"]["m"][:2]).permute(0, 3, 1, 2)
+    assert torch.equal(seen["real"], x)
+    with trainer._eval_G(val_painter=True) as G:
+        torch.testing.assert_close(seen["fake"], G.paint(m, x), rtol=0,
+                                   atol=1e-6)
+    assert trainer.state.G.training
+
+
 @pytest.mark.parametrize("option,item", [
-    ({"train": {"fid": {"enable": True}}}, "ROADMAP A.9"),
     ({"tpu": {"spatial_shards": 2}}, "ROADMAP A.11"),
     ({"tpu": {"mesh": {"data": 2}}}, "ROADMAP A.11"),
 ])
