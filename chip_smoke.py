@@ -184,11 +184,33 @@ Phases, any failure exits non-zero:
      bench_train's rank in its own), their JSON lines; (e) with two cards
      or more, (a)'s steps over NCCL on every card, else one line saying it
      was not run.
+  12. row-sharded (spatial) and hybrid inference (climategan_torch/
+     parallel/spatial.py) at full width (default opts, 640^2, batch 2, the
+     seed-0 model), the shards on one card repeated (["cuda:0"] * k: the
+     machine shows one card, so these are the host's and the device's
+     cost of the split, not scaling): (a) build_spatial_infer_fn for k = 2
+     and 4 in f32 (TF32 off) against the unsharded forward on the card:
+     flood, wildfire and smog within 1 LSB on >= 99.9% of values, the mask
+     within SPATIAL_MASK_BAR, launch counts set to 0 before a forward and
+     read after: spade_cond 18 k and k of each other kernel; ms per batch
+     beside the unsharded forward's, and the host and device time inside
+     the exchanges and collectives (profiler ranges); (b) in bf16 at k =
+     4, each spade_cond window the forward passes to the kernel recorded
+     and the kernel held against spade_cond_plain on exactly those inputs
+     at phase 2's bars (f32 1e-4, bf16 one ulp), the events' agreement
+     with the unsharded bf16 forward printed (information); (c) render of
+     apply_events --spatial through load_model(args, devices=["cuda:0"] *
+     2) on phase 6's 7 synthetic photos, f32, launches per batch {36, 2,
+     2, 2, 2}, PNGs within 1 LSB of the unsharded render on >= 99.9% of
+     values; (d) climategan_torch.bench --spatial on ["cuda:0"] * 2 and
+     --hybrid 2 on ["cuda:0"] * 4 at batch 2, one JSON line each (mfu <=
+     1.05, the layout's dp and sp).
 The last three lines are the card's name and power limit, the kernels JSON
 line (each kernel's launches per configuration's path; spade_cond's with
 the SPADE masker's numbers; ``ddp_train_launches``: per rank step of
 phase 11; phase 10's launches per pl4m and accumulated
-step and per FID evaluation), and {"ok": true, "device": {...}}.
+step and per FID evaluation; ``spatial_launches``: per row-sharded forward
+of phase 12.a by shard count), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -2117,6 +2139,244 @@ def parallel_phase(torch, dev, run_dir: Path) -> dict:
     return ddp
 
 
+# ---------------------------------------------------------------------------
+# phase 12: row-sharded (spatial) and hybrid inference
+SPATIAL_SHARDS = (2, 4)
+SPATIAL_DEVICE = "cuda:0"  # the shards' device, repeated
+# the f32 mask of a row-sharded forward against the unsharded one on the
+# card: the same convolutions on row windows, which cuDNN may run with
+# other algorithms than on the whole map (f32 rounding, set before the run)
+SPATIAL_MASK_BAR = 1e-4
+
+
+def _spatial_ranges(torch, fn):
+    """One call of ``fn`` under torch.profiler: (the host ms and the device
+    ms inside the outermost "spatial.exchange" and "spatial.collective"
+    ranges, the call's wall ms, the device's busy ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    busy = sum(e.device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    host = dev_ms = 0.0
+    for e in events:
+        if (e.device_type != DeviceType.CPU
+                or not e.name.startswith("spatial.")):
+            continue
+        parent, nested = e.cpu_parent, False
+        while parent is not None:
+            nested |= parent.name.startswith("spatial.")
+            parent = parent.cpu_parent
+        if not nested:
+            host += e.cpu_time_total / 1e3
+            dev_ms += e.device_time_total / 1e3
+    return host, dev_ms, wall, busy
+
+
+def spatial_phase(torch, dev) -> dict:
+    """Phase 12 (see the module docstring): row-sharded inference on
+    ["cuda:0"] * k at full width. The card's machine shows one card, so
+    the shards share it: the numbers are the host's and the device's cost
+    of the split, not scaling. Returns each kernel's launches per sharded
+    forward by k."""
+    import numpy as np
+
+    from climategan_torch import apply_events as cli
+    from climategan_torch import bench, kernels
+    from climategan_torch.inference import (
+        build_infer_fn,
+        build_spatial_infer_fn,
+    )
+    from climategan_torch.kernels.spade_cond import (
+        spade_cond,
+        spade_cond_packed,
+        spade_cond_plain,
+    )
+    from climategan_torch.models import norms as norms_mod
+    from climategan_torch.models.blocks import SPADEResnetBlock
+    from climategan_torch.utils.opts import load_opts
+
+    t_phase = time.perf_counter()
+    opts = load_opts()
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.rand(BATCH, SIZE, SIZE, 3, device=dev, generator=g) * 2 - 1
+    uniform = torch.rand(9, 9, device=dev, generator=g)
+    g_dev = torch.tensor(G_VALUE, device=dev)
+
+    def call(fn):
+        return lambda: fn(x, uniform=uniform, g_value=g_dev)
+
+    # ---- 12.a f32, the split against the unsharded forward ---------------
+    G1, one = build_infer_fn(opts, dtype=torch.float32, device=dev, seed=0)
+    want = one(x, uniform=uniform, g_value=g_dev)
+    d = G1.depth_map(G1.infer_masker(
+        x.permute(0, 3, 1, 2).contiguous())[0]).float()
+    log("12.a the f32 depth's range per image (the smog min-max rescales "
+        "it): " + ", ".join(f"[{lo:.6f}, {hi:.6f}]" for lo, hi in zip(
+            d.amin((1, 2, 3)).tolist(), d.amax((1, 2, 3)).tolist())))
+    del G1, d
+    times = {1: cuda_ms(torch, call(one), reps=3)}
+    launched = {}
+    for k in SPATIAL_SHARDS:
+        _, infer = build_spatial_infer_fn(opts, [SPATIAL_DEVICE] * k,
+                                          dtype=torch.float32, seed=0)
+        infer(x, uniform=uniform, g_value=g_dev)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = infer(x, uniform=uniform, g_value=g_dev)
+        torch.cuda.synchronize()
+        launched[k] = dict(kernels.launches)
+        expect = {n: (18 * k if n == "spade_cond" else k)
+                  for n in MAIN_PATH_LAUNCHES}
+        if launched[k] != expect:
+            raise AssertionError(f"{k} shards: launches {launched[k]}, "
+                                 f"expected {expect}")
+        for key in ("flood", "wildfire", "smog"):
+            within, worst = lsb_agreement(got[key], want[key])
+            equal = (got[key] == want[key]).float().mean().item()
+            log(f"12.a {k} shards f32 {key}: within 1 LSB on "
+                f"{100 * within:.4f}% of values (max {worst} LSB, "
+                f"{100 * equal:.4f}% equal)")
+            if not within >= 0.999:
+                raise AssertionError(f"{k} shards: {key} disagrees")
+        mask_err = (got["mask"] - want["mask"]).abs().max().item()
+        log(f"12.a {k} shards f32 mask: max error {mask_err:.3e} (bar "
+            f"{SPATIAL_MASK_BAR})")
+        if not mask_err <= SPATIAL_MASK_BAR:
+            raise AssertionError(f"{k} shards: mask error {mask_err}")
+        times[k] = cuda_ms(torch, call(infer), reps=3)
+        host, in_dev, wall, busy = _spatial_ranges(torch, call(infer))
+        log(f"12.a {k} shards on one card, f32 640^2 batch {BATCH}: "
+            f"{times[k]:.2f} ms per batch against {times[1]:.2f} unsharded; "
+            f"under the profiler {wall:.2f} ms, of which exchanges and "
+            f"collectives {host:.2f} ms of host time ({100 * host / wall:.1f}"
+            f"%) and {in_dev:.3f} ms of device time ({100 * in_dev / busy:.1f}"
+            f"% of {busy:.2f} busy ms)")
+        del infer
+        torch.cuda.empty_cache()
+    del one
+
+    # ---- 12.b bf16: the k = 4 forward's spade_cond windows ---------------
+    _, one16 = build_infer_fn(opts, dtype=torch.bfloat16, device=dev, seed=0)
+    want16 = one16(x, uniform=uniform, g_value=g_dev)
+    times16 = {1: cuda_ms(torch, call(one16), reps=3)}
+    del one16
+    G16, infer16 = build_spatial_infer_fn(opts, [SPATIAL_DEVICE] * 4,
+                                          dtype=torch.bfloat16, seed=0)
+    # two launches per SPADE block and shard (18 at the default opts)
+    n_windows = 4 * 2 * sum(isinstance(m, SPADEResnetBlock)
+                            for m in G16.modules())
+    windows = []
+    kernel = norms_mod.spade_cond_packed
+
+    def record(seg, pack):
+        windows.append((seg, pack))
+        return kernel(seg, pack)
+
+    norms_mod.spade_cond_packed = record
+    try:
+        got16 = infer16(x, uniform=uniform, g_value=g_dev)
+    finally:
+        norms_mod.spade_cond_packed = kernel
+    torch.cuda.synchronize()
+    times16[4] = cuda_ms(torch, call(infer16), reps=3)
+    for key in ("flood", "wildfire", "smog"):
+        within, worst = lsb_agreement(got16[key], want16[key])
+        log(f"12.b 4 shards bf16 {key} (information, not a bar): within 1 "
+            f"LSB on {100 * within:.4f}% of values (max {worst} LSB)")
+    log(f"12.b bf16 640^2 batch {BATCH}: 4 shards {times16[4]:.2f} ms per "
+        f"batch against {times16[1]:.2f} unsharded")
+    if len(windows) != n_windows:
+        raise AssertionError(f"recorded {len(windows)} spade_cond windows")
+    e32 = e16 = 0.0
+    heights = sorted({seg.shape[1] for seg, _ in windows})
+    for i, (seg, pack) in enumerate(windows):
+        a32 = (seg.float(), pack.args[0].float(), pack.args[1].float(),
+               [tuple(t.float() for t in b) for b in pack.args[2]])
+        ref = spade_cond_plain(*a32)
+        for got_, want_ in zip(spade_cond(*a32), ref):
+            torch.testing.assert_close(got_, want_, rtol=1e-4, atol=1e-4)
+            e32 = max(e32, (got_ - want_).abs().max().item())
+        for got_, want_ in zip(spade_cond_packed(seg, pack), ref):
+            ulp = 2.0 ** (torch.floor(torch.log2(want_.abs().max())).item()
+                          - 7)
+            e = (got_.float() - want_).abs().max().item()
+            if not e <= ulp:
+                raise AssertionError(f"spade_cond window {i} "
+                                     f"{tuple(seg.shape)}: bf16 error {e} "
+                                     f"> one ulp {ulp}")
+            e16 = max(e16, e)
+    log(f"12.b the k = 4 forward's {len(windows)} spade_cond windows "
+        f"(heights {heights}) against spade_cond_plain: f32 max error "
+        f"{e32:.3e}, bf16 {e16:.3e} (within one ulp)")
+    del G16, infer16, windows
+    torch.cuda.empty_cache()
+
+    # ---- 12.c apply_events --spatial -------------------------------------
+    rng = np.random.default_rng(6)
+    photos = [(f"photo_{i}", rng.integers(0, 256, shape, np.uint8))
+              for i, shape in enumerate([(720, 1280, 3)] * 4
+                                        + [(1280, 960, 3)] * 3)]
+    rendered = {}
+    for what, flags, devices in (("one", [], None),
+                                 ("spatial", ["--spatial"],
+                                  [SPATIAL_DEVICE] * 2)):
+        args = cli.parse_args(["-i", ".", "-b", str(BATCH), *flags])
+        imgs = {}
+        kernels.reset_launches()
+        n_batches = cli.render(
+            photos, args, lambda n, e, img: imgs.__setitem__((n, e),
+                                                             img.copy()),
+            infer=cli.load_model(args, devices))
+        torch.cuda.synchronize()
+        k = 2 if flags else 1
+        expect = {n: n_batches * (18 * k if n == "spade_cond" else k)
+                  for n in MAIN_PATH_LAUNCHES}
+        if dict(kernels.launches) != expect:
+            raise AssertionError(f"render {flags}: launches "
+                                 f"{dict(kernels.launches)}, expected "
+                                 f"{expect}")
+        rendered[what] = imgs
+    if rendered["spatial"].keys() != rendered["one"].keys() \
+            or len(rendered["one"]) != 3 * len(photos):
+        raise AssertionError("apply_events --spatial wrote other images")
+    diffs = [np.abs(rendered["spatial"][key].astype(int) - v.astype(int))
+             for key, v in rendered["one"].items()]
+    within = float(np.mean([np.mean(d <= 1) for d in diffs]))
+    worst = max(int(d.max()) for d in diffs)
+    log(f"12.c apply_events --spatial (load_model(args, devices=['cuda:0'] "
+        f"* 2), f32, {len(photos)} photos, -b {BATCH}): {len(diffs)} PNGs "
+        f"within 1 LSB of the unsharded serve on {100 * within:.4f}% of "
+        f"values (max {worst} LSB)")
+    if not within >= 0.999:
+        raise AssertionError("apply_events --spatial disagrees")
+
+    # ---- 12.d bench --spatial and --hybrid 2 -------------------------------
+    for flags, devices in ((["--spatial"], [SPATIAL_DEVICE] * 2),
+                           (["--hybrid", "2"], [SPATIAL_DEVICE] * 4)):
+        argv = [*flags, "--batch", str(BATCH), "--events", "all", "--iters",
+                "3", "--warmup", "1"]
+        t0 = time.perf_counter()
+        line = bench.run_bench(bench.parse_args(argv), devices=devices)
+        torch.cuda.empty_cache()
+        if not (line["value"] > 0 and line["mfu"] <= 1.05
+                and line["n_devices"] == len(devices)):
+            raise AssertionError(f"bench {argv}: {line}")
+        log(f"12.d bench {' '.join(argv)} on {devices} "
+            f"({time.perf_counter() - t0:.1f} s; one card: no scaling): "
+            f"{json.dumps(line)}")
+    log(f"row-sharded phase: {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -2506,12 +2766,15 @@ def run(torch) -> int:
         ddp_launches = parallel_phase(torch, dev,
                                       Path(data_dir.name) / "run")
     data_dir.cleanup()
+    spatial_launches = spatial_phase(torch, dev)
     for r in rows:
         r["train_launches"] = train_launches[r["name"]]
         r["ddp_train_launches"] = ddp_launches[r["name"]]
         r["trainer_launches"] = trainer_launches[r["name"]]
         r["launches_by_path"] = {"default": r["launches"], **{
             path: n[r["name"]] for path, n in configs["paths"].items()}}
+        r["spatial_launches"] = {f"{k} shards": n[r["name"]]
+                                 for k, n in spatial_launches.items()}
         if r["name"] == "spade_cond":
             r["spade_masker"] = configs["spade_cond"]
         r["step_option_launches"] = {

@@ -20,9 +20,12 @@ before the next).
 
 ``--mesh`` splits each batch over one replica of the model per visible
 card (``inference.build_mesh_infer_fn``; one card: the plain forward).
-Under ``python -m torch.distributed.run`` each process serves its strided
-share of the images (``paths[rank::world]``) on its own card, as a JAX pod
-serves. ``--spatial`` (row sharding) waits for ROADMAP A.11b.
+``--spatial`` splits each image's rows over the visible cards in this
+process (``inference.build_spatial_infer_fn``), on the largest count that
+divides the rows, as the JAX CLI does; with one card it runs one shard
+(the plain forward) and says so on stderr. Under ``python -m
+torch.distributed.run`` each process serves its strided share of the
+images (``paths[rank::world]``) on its own card, as a JAX pod serves.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ import torch
 from climategan_torch.inference import (
     build_infer_fn,
     build_mesh_infer_fn,
+    build_spatial_infer_fn,
     resolve_device,
 )
 from climategan_torch.parallel import distributed
@@ -57,7 +61,6 @@ STAGES = ("imports", "setup", "decode", "data pre-processing", "all events",
 # thread wrote 6 noise photos' PNGs at 640^2 in 0.19 s, 4x a batch-2 forward
 IN_FLIGHT = 2
 WRITERS = 4
-SPATIAL = "row-sharded serving (--spatial) is not ported yet: ROADMAP A.11b"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,7 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", action="store_true",
                    help="split each batch over one replica per visible card")
     p.add_argument("--spatial", action="store_true",
-                   help="not ported: " + SPATIAL)
+                   help="split each image's rows over the visible cards "
+                        "(row sharding in one process; the largest card "
+                        "count that divides the rows; exclusive with "
+                        "--mesh)")
     p.add_argument("--fuse", action="store_true",
                    help="accepted for the root CLI's flag surface; a no-op: "
                         "the port always bakes spectral norm into the kernels")
@@ -106,8 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_args(argv=None) -> argparse.Namespace:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.spatial:
-        parser.error(SPATIAL)
+    if args.spatial and args.mesh:
+        parser.error("--spatial and --mesh are exclusive: rows or batch")
     return args
 
 
@@ -164,11 +170,12 @@ def pad_batch(batch: np.ndarray, size: int) -> np.ndarray:
 # ---- model and serving loop ---------------------------------------------
 
 def mesh_devices(args) -> List[torch.device]:
-    """The devices ``--mesh`` splits a batch over: every visible card (the
-    process's own card in a process group, whose processes split the
-    images instead), or ``--device`` alone on the CPU."""
+    """The devices ``--mesh`` splits a batch over, or ``--spatial`` each
+    image's rows: every visible card (the process's own card in a process
+    group, whose processes split the images instead), or ``--device``
+    alone on the CPU."""
     device = resolve_device(args.device)
-    if (not args.mesh or device.type != "cuda"
+    if (not (args.mesh or args.spatial) or device.type != "cuda"
             or torch.distributed.is_initialized()):
         return [device]
     return make_mesh()
@@ -177,9 +184,10 @@ def mesh_devices(args) -> List[torch.device]:
 def load_model(args, devices: Optional[Sequence] = None) -> Callable:
     """``infer`` of ``build_infer_fn`` with the weights of ``-r`` (random
     from ``--seed`` without it) on ``--device``, or of
-    ``build_mesh_infer_fn`` over ``devices`` (default ``mesh_devices``)
-    where there are several. A checkpoint that lacks the masker, or the
-    painter while the flood is asked for, is refused."""
+    ``build_mesh_infer_fn`` (``--spatial``: ``build_spatial_infer_fn``,
+    JAX's rule for the shard count) over ``devices`` (default
+    ``mesh_devices``) where there are several. A checkpoint that lacks the
+    masker, or the painter while the flood is asked for, is refused."""
     devices = mesh_devices(args) if devices is None else list(devices)
     state_dict = None
     if args.resume_path:
@@ -196,6 +204,12 @@ def load_model(args, devices: Optional[Sequence] = None) -> Callable:
                   cloudy=not args.no_cloudy,
                   ignore_event=tuple(args.ignore_event),
                   state_dict=state_dict, seed=args.seed)
+    if args.spatial and len(devices) > 1:
+        return build_spatial_infer_fn(opts, devices, divide_rows=True,
+                                      **kwargs)[1]
+    if args.spatial:
+        print(f"--spatial: one device ({devices[0]}); the rows run as one "
+              "shard", file=sys.stderr)
     if len(devices) > 1:
         return build_mesh_infer_fn(opts, devices, **kwargs)[1]
     return build_infer_fn(opts, device=devices[0], **kwargs)[1]

@@ -25,8 +25,15 @@ it raises, and nothing falls back to the CPU.
 ``--mesh`` splits the batch over one replica per visible card, on the
 largest count that divides it (``inference.build_mesh_infer_fn``, the JAX
 bench's rule): ``value`` and the TFLOP/s are then per card, beside the
-aggregate images/s and ``n_devices``. ``--spatial`` and ``--hybrid`` (row
-sharding) wait for ROADMAP A.11b.
+aggregate images/s and ``n_devices``. ``--spatial`` splits each image's
+rows over the largest count of cards that divides ``--size``
+(``inference.build_spatial_infer_fn``), and ``--hybrid SP`` the batch over
+dp data groups of SP cards each, dp the largest divisor of the batch up to
+cards / SP (``build_hybrid_infer_fn``), both as the JAX bench does and for
+the whole forward only; the line gives the layout as ``dp`` and ``sp``.
+With one card they run the plain forward, as JAX's do. ``run_bench(args,
+devices=...)`` takes the devices to use in place of the visible cards (a
+device may repeat).
 """
 from __future__ import annotations
 
@@ -50,8 +57,6 @@ CONFIGS = {  # the root bench.py's --config shortcuts
 }
 IGNORE = {"flood": ("wildfire", "smog"), "smog": ("wildfire", "flood"),
           "wildfire": ("smog", "flood"), "all": ()}
-SPATIAL = ("row-sharded benchmarks (--spatial, --hybrid) are not ported "
-           "yet: ROADMAP A.11b")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,9 +77,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", action="store_true",
                     help="split the batch over one replica per visible card")
     ap.add_argument("--spatial", action="store_true",
-                    help="not ported: " + SPATIAL)
+                    help="split each image's rows over the visible cards")
     ap.add_argument("--hybrid", type=int, default=0, metavar="SP",
-                    help="not ported: " + SPATIAL)
+                    help="SP-way row sharding x (cards / SP)-way batch "
+                         "sharding")
     ap.add_argument("opts", nargs="*", metavar="key=value",
                     help="overrides of the default opts")
     return ap
@@ -84,10 +90,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     """Flags with the ``--config`` shortcut applied."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.spatial or args.hybrid:
-        parser.error(SPATIAL)
     if args.mesh and args.stage != "all":
         parser.error("--mesh benches the whole forward (--stage all)")
+    if (args.spatial or args.hybrid) and args.stage != "all":
+        parser.error("--spatial and --hybrid bench the whole forward "
+                     "(--stage all); a row-sharded masker or painter stage "
+                     "is ROADMAP A.11b-3")
+    if args.hybrid < 0:
+        parser.error("--hybrid takes a row shard count >= 1")
     for k, v in CONFIGS.get(args.config, {}).items():
         setattr(args, k, v)
     return args
@@ -132,32 +142,65 @@ def count_flops(fn) -> Tuple[int, int]:
     return counter.get_total_flops(), calls
 
 
+def layout(args, n: int) -> Tuple[int, int]:
+    """(dp, sp) of the JAX bench's rules over ``n`` devices: ``--hybrid SP``
+    (dp the largest divisor of the batch up to n / SP), ``--spatial`` (the
+    largest count that divides the rows), ``--mesh`` (the largest count
+    that divides the batch); one device runs the plain forward."""
+    from climategan_torch.parallel.mesh import (
+        hybrid_size,
+        mesh_size,
+        spatial_size,
+    )
+
+    if n == 1:
+        return 1, 1
+    if args.hybrid:
+        return hybrid_size(args.batch, args.size, n, args.hybrid), args.hybrid
+    if args.spatial:
+        return 1, spatial_size(args.size, n)
+    if args.mesh:
+        return mesh_size(args.batch, n), 1
+    return 1, 1
+
+
 @torch.inference_mode()
-def run_bench(args) -> dict:
+def run_bench(args, devices=None) -> dict:
     from climategan_torch import kernels
     from climategan_torch.inference import (
+        build_hybrid_infer_fn,
         build_infer_fn,
         build_mesh_infer_fn,
+        build_spatial_infer_fn,
         resolve_device,
     )
-    from climategan_torch.parallel.mesh import make_mesh, mesh_size
+    from climategan_torch.parallel.mesh import make_mesh
     from climategan_torch.utils.opts import load_opts
 
-    device = resolve_device("cuda")
+    resolve_device("cuda")
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     opts = load_opts(commandline_opts=args.opts)
     kwargs = dict(dtype=dtype, ignore_event=IGNORE[args.events], seed=0)
-    devices = [device]
-    if args.mesh:
-        devices = make_mesh(mesh_size(args.batch, torch.cuda.device_count()))
-        device = devices[0]
-    if len(devices) > 1:
+    pool = make_mesh(devices=devices)
+    if not (args.mesh or args.spatial or args.hybrid):
+        pool = pool[:1]
+    dp, sp = layout(args, len(pool))
+    devices = pool[:dp * sp]
+    device = devices[0]
+    if len(devices) < len(pool):
+        print(f"WARNING: dp{dp} x sp{sp} uses {len(devices)} of {len(pool)} "
+              "devices", file=sys.stderr)
+    if sp > 1 and dp > 1:
+        G, infer = build_hybrid_infer_fn(opts, devices, sp, **kwargs)
+    elif sp > 1:
+        G, infer = build_spatial_infer_fn(opts, devices, **kwargs)
+    elif dp > 1:
         G, infer = build_mesh_infer_fn(opts, devices, **kwargs)
     else:
         G, infer = build_infer_fn(opts, device=device, **kwargs)
 
     def sync():
-        for d in devices:
+        for d in dict.fromkeys(devices):
             torch.cuda.synchronize(d)
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.rand(args.batch, args.size, args.size, 3, device=device,
@@ -211,6 +254,8 @@ def run_bench(args) -> dict:
         "unit": "images/sec/chip",
         "aggregate_images_per_sec": round(args.batch * args.iters / wall, 3),
         "n_devices": n,
+        "dp": dp,
+        "sp": sp,
         "gflops_per_image": round(flops / args.batch / 1e9, 2),
         "achieved_tflops_per_chip": round(achieved, 2),
     }

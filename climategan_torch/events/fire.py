@@ -24,6 +24,8 @@ from climategan_torch.kernels.fire_paste import fire_paste
 from climategan_torch.ops.blur import box_dilate, gaussian_blur
 from climategan_torch.ops.image import normalize, retrieve_sky_mask
 from climategan_torch.ops.interpolate import resize
+from climategan_torch.parallel import spatial
+from climategan_torch.parallel.spatial import Rows
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,6 +57,21 @@ def _warm(x: torch.Tensor) -> torch.Tensor:
     """Step 1: the min-max rescale and the warm shift, truncated."""
     wf = normalize(x, 0.0, 255.0)
     return quantize_u8(wf + _warm_shift(wf.device)).contiguous()
+
+
+def warm_rows(x: Rows) -> Rows:
+    """``_warm`` on a row-sharded image, with the whole image's min-max."""
+    return spatial.normalize(x, 0.0, 255.0).map(
+        lambda p: quantize_u8(p + _warm_shift(p.device)).contiguous())
+
+
+def gray_sum_rows(wf: Rows) -> Tuple[torch.Tensor, int]:
+    """``gray_sum``'s sum (float64, on the first shard's device) and count
+    over the shards of a warmed image (``warm_rows``)."""
+    sums = [_grayscale(p).sum(dtype=torch.float64) if p.shape[2] else None
+            for p in wf.parts]
+    total = spatial.all_reduce(sums, "sum", wf.devices[:1])[0]
+    return total, wf.parts[0].shape[0] * wf.h * wf.w
 
 
 def gray_sum(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -105,3 +122,55 @@ def add_fire(x: torch.Tensor, seg_preds: torch.Tensor,
     wf[:, :, 0, 0] = 255.0
     wf[:, :, -1, -1] = 0.0
     return wf
+
+
+def sky_rows(seg_preds: Rows, size, crop_bottom_sky_mask: bool = True
+             ) -> torch.Tensor:
+    """The whole dilated sky mask at ``size`` on the first shard's device,
+    from row-sharded seg logits (steps 3 of ``add_fire``): each shard's
+    argmax, gathered; the crop's first row is the whole map's."""
+    first = seg_preds.devices[0]
+    sky = seg_preds.map(lambda p: retrieve_sky_mask(p).to(torch.float32))
+    sky = sky.gather(first)
+    if crop_bottom_sky_mask:
+        sky[:, :, 2 * sky.shape[-2] // 3:] = 0.0
+    sky = resize(sky, size, mode="nearest")
+    return increase_sky_mask(sky, 0.18, 0.18)
+
+
+def add_fire_rows(x: Rows, seg_preds: Rows,
+                  g_value: Union[float, torch.Tensor],
+                  kernel_size: int = 281, kernel_sigma: float = 140.5,
+                  crop_bottom_sky_mask: bool = True,
+                  transparency: float = 200.0,
+                  gray_mean: Optional[torch.Tensor] = None) -> Rows:
+    """``add_fire`` on a row-sharded image and seg logits (float32), with a
+    given ``g_value``: the min-max and the gray mean (``gray_mean``, else
+    from every shard's ``gray_sum``) are the whole image's, every shard
+    gets the whole dilated sky mask and blurs its own rows, and the
+    range-pinning pixels land on the shards of the first and the last
+    row. One launch of each fire kernel per shard with rows."""
+    wf = warm_rows(x)
+    if gray_mean is None:
+        total, count = gray_sum_rows(wf)
+        gray_mean = (total / count).float()
+    sky = sky_rows(seg_preds, (x.h, x.w), crop_bottom_sky_mask)
+    g_value = torch.as_tensor(g_value).to(torch.float32).reshape(())
+    parts = []
+    for i, p in enumerate(wf.parts):
+        lo, hi = wf.bounds(i)
+        if lo == hi:
+            parts.append(p)
+            continue
+        dev = p.device
+        p = fire_color_grade(p, gray_mean.to(dev), 1.5, 0.73)
+        blurred = gaussian_blur(sky.to(dev), kernel_size, kernel_sigma,
+                                rows=(lo, hi))
+        p = fire_paste(p, blurred.contiguous(), g_value.to(dev).contiguous(),
+                       transparency, 0.8)
+        if lo == 0:
+            p[:, :, 0, 0] = 255.0
+        if hi == wf.h:
+            p[:, :, -1, -1] = 0.0
+        parts.append(p)
+    return Rows(parts)

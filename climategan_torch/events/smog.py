@@ -16,6 +16,8 @@ import torch
 from climategan_torch.kernels.smog_tail import smog_tail
 from climategan_torch.ops.image import normalize
 from climategan_torch.ops.interpolate import resize
+from climategan_torch.parallel import spatial
+from climategan_torch.parallel.spatial import Rows
 
 
 def add_smog(x: torch.Tensor, d: torch.Tensor, airlight: float = 0.76,
@@ -30,3 +32,20 @@ def add_smog(x: torch.Tensor, d: torch.Tensor, airlight: float = 0.76,
     dd = resize(dd, x.shape[-2:], mode="bilinear", align_corners=True)
     return smog_tail(x01.contiguous(), dd.contiguous(), airlight, beta / vr,
                      tuple(yellow_color), alpha)
+
+
+def add_smog_rows(x: Rows, d: Rows, airlight: float = 0.76,
+                  beta: float = 2.0, vr: float = 1.0,
+                  yellow_color: Sequence[float] = (224, 192, 29),
+                  alpha: float = 20.0) -> Rows:
+    """``add_smog`` on a row-sharded image and depth (float32): the min-max
+    rescales are the whole maps', the depth's bilinear resize computes each
+    shard's rows from the depth rows they read, and ``smog_tail`` runs once
+    per shard with rows."""
+    x01 = spatial.normalize(x)
+    dd = spatial.normalize(d, 0.3, 1.0)
+    dd = spatial.normalize(dd.map(lambda p: 1.0 / p), 0.1, 1.0)
+    dd = spatial.resize(dd, (x.h, x.w), "bilinear", align_corners=True)
+    return x01.zip(dd, lambda a, b: smog_tail(
+        a.contiguous(), b.contiguous(), airlight, beta / vr,
+        tuple(yellow_color), alpha) if a.shape[2] else a)

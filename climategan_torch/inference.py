@@ -10,26 +10,45 @@ quantize.
 ``build_mesh_infer_fn`` serves the same forward split over in-process
 replicas, one per device of a mesh (``--mesh``), as the JAX package's
 batch-sharded forward: the draws are made once for the whole batch and the
-wildfire's gray mean is the whole batch's.
+wildfire's gray mean is the whole batch's. ``build_spatial_infer_fn``
+splits each image's rows over devices (``--spatial``,
+``parallel/spatial.py``) and ``build_hybrid_infer_fn`` does both, the
+batch over data groups and each group's rows over its devices
+(``--hybrid``), as the JAX package's row- and 2-D-sharded forwards.
 """
 from __future__ import annotations
 
+import sys
 from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from climategan_torch.events.fire import add_fire, gray_sum
-from climategan_torch.events.smog import add_smog
+from climategan_torch.events.fire import (
+    add_fire,
+    add_fire_rows,
+    gray_sum,
+    gray_sum_rows,
+    warm_rows,
+)
+from climategan_torch.events.smog import add_smog, add_smog_rows
 from climategan_torch.models.blocks import pack_spade_weights
 from climategan_torch.models.generator import (
     CLOUDY_RES,
     GenConfig,
     OmniGenerator,
+    check_rows,
     create_generator,
 )
 from climategan_torch.ops.image import unit_range_to_uint8
-from climategan_torch.parallel.mesh import gather, mesh_size
+from climategan_torch.parallel import spatial
+from climategan_torch.parallel.mesh import (
+    gather,
+    hybrid_groups,
+    mesh_size,
+    spatial_size,
+)
+from climategan_torch.parallel.spatial import Rows
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -73,8 +92,7 @@ def build_infer_fn(
     batch (``build_mesh_infer_fn``).
     """
     device = resolve_device(device)
-    fire_opts = opts.events.get("fire", {}) or {}
-    smog_opts = opts.events.get("smog", {}) or {}
+    fire_kw, smog_kw = event_kwargs(opts)
     if state_dict is None:
         G = create_generator(opts, seed)
     else:
@@ -110,21 +128,10 @@ def build_infer_fn(
         if "wildfire" not in ignore_event:
             out["wildfire"] = add_fire(
                 x.float(), s.float(), g_value=g_value, generator=generator,
-                kernel_size=int(fire_opts.get("kernel_size", 281)),
-                kernel_sigma=float(fire_opts.get("kernel_sigma", 140.5)),
-                crop_bottom_sky_mask=bool(
-                    fire_opts.get("crop_bottom_sky_mask", True)),
-                gray_mean=gray_mean,
-            ).permute(0, 2, 3, 1)
+                gray_mean=gray_mean, **fire_kw).permute(0, 2, 3, 1)
         if "smog" not in ignore_event:
             out["smog"] = add_smog(
-                x.float(), G.depth_map(d).float(),
-                airlight=float(smog_opts.get("airlight", 0.76)),
-                beta=float(smog_opts.get("beta", 2.0)),
-                vr=float(smog_opts.get("vr", 1.0)),
-                yellow_color=tuple(smog_opts.get("yellow_color",
-                                                 (224, 192, 29))),
-                alpha=float(smog_opts.get("alpha", 20.0)),
+                x.float(), G.depth_map(d).float(), **smog_kw
             ).permute(0, 2, 3, 1)
         if quantize:
             out = {k: unit_range_to_uint8(v) for k, v in out.items()}
@@ -132,6 +139,44 @@ def build_infer_fn(
         return out
 
     return G, infer
+
+
+def event_kwargs(opts) -> Tuple[dict, dict]:
+    """The keyword arguments of ``add_fire`` and ``add_smog`` from
+    ``opts.events``."""
+    fire = opts.events.get("fire", {}) or {}
+    smog = opts.events.get("smog", {}) or {}
+    return (dict(kernel_size=int(fire.get("kernel_size", 281)),
+                 kernel_sigma=float(fire.get("kernel_sigma", 140.5)),
+                 crop_bottom_sky_mask=bool(
+                     fire.get("crop_bottom_sky_mask", True))),
+            dict(airlight=float(smog.get("airlight", 0.76)),
+                 beta=float(smog.get("beta", 2.0)),
+                 vr=float(smog.get("vr", 1.0)),
+                 yellow_color=tuple(smog.get("yellow_color", (224, 192, 29))),
+                 alpha=float(smog.get("alpha", 20.0))))
+
+
+def draws(G: OmniGenerator, shape, ignore, cloudy: bool, uniform, z,
+          g_value, generator, first):
+    """(uniform, z, g_value): the Perlin draws, the painter's z (None for
+    a ``no_z`` painter) and the wildfire's green value of an NHWC batch of
+    ``shape``, each made once for the whole batch in the single forward's
+    order where it is not given, from ``generator`` (else the ``first``
+    device's generator), as a forward split over devices needs them."""
+    n, h, w = shape[0], shape[1], shape[2]
+    where = first if generator is None else generator.device
+    if "flood" not in ignore:
+        if cloudy and uniform is None:
+            uniform = torch.rand((CLOUDY_RES[0] + 1, CLOUDY_RES[1] + 1),
+                                 generator=generator, device=where,
+                                 dtype=torch.float32)
+        if z is None:
+            z = G.sample_painter_z(n, h, w, torch.float32, where, generator)
+    if "wildfire" not in ignore and g_value is None:
+        g_value = torch.randint(100, 151, (), generator=generator,
+                                device=where)
+    return uniform, z, g_value
 
 
 def build_mesh_infer_fn(opts, devices: Sequence, **kwargs
@@ -166,22 +211,12 @@ def build_mesh_infer_fn(opts, devices: Sequence, **kwargs
               g_value=None, z: Optional[torch.Tensor] = None):
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
-        n, h, w = x.shape[0], x.shape[1], x.shape[2]
+        n = x.shape[0]
         k = mesh_size(n, len(replicas))
         if k == 1:
             return replicas[0][1](x, uniform, generator, g_value, z)
-        where = first if generator is None else generator.device
-        if "flood" not in ignore:
-            if cloudy and uniform is None:
-                uniform = torch.rand(
-                    (CLOUDY_RES[0] + 1, CLOUDY_RES[1] + 1),
-                    generator=generator, device=where, dtype=torch.float32)
-            if z is None:
-                z = G0.sample_painter_z(n, h, w, torch.float32, where,
-                                        generator)
-        if "wildfire" not in ignore and g_value is None:
-            g_value = torch.randint(100, 151, (), generator=generator,
-                                    device=where)
+        uniform, z, g_value = draws(G0, x.shape, ignore, cloudy, uniform, z,
+                                    g_value, generator, first)
         per = n // k
         parts = [x[i * per:(i + 1) * per] for i in range(k)]
         gray_mean = None
@@ -197,6 +232,165 @@ def build_mesh_infer_fn(opts, devices: Sequence, **kwargs
                                gray_mean=None if gray_mean is None
                                else gray_mean.to(devs[i]))
                 for i, part in enumerate(parts)]
+        return gather(outs, first)
+
+    return G0, infer
+
+
+# ---- row sharding (--spatial) and data x rows (--hybrid) -------------------
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index (``cuda`` is the current card), as a
+    tensor's ``.device`` names it."""
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _row_replicas(opts, devices: Sequence, kwargs):
+    """(the devices with their index, G of the first, ``infer`` of the
+    first, ``run``): one ``build_infer_fn`` replica per distinct device,
+    linked for the sharded forward (``spatial.link_replicas``); ``run(xr,
+    uniform, g_value, gray_mean)`` is the forward of ``build_infer_fn`` on
+    a row-sharded batch ``xr`` with the draws given, its outputs gathered
+    as one NHWC batch on the first shard's device. The configuration must
+    have row-sharded forwards (``generator.check_rows``)."""
+    check_rows(GenConfig.from_opts(opts))
+    devs = [_indexed(d) for d in devices]
+    built = {d: build_infer_fn(opts, device=d, **kwargs)
+             for d in dict.fromkeys(devs)}
+    G0, infer0 = built[devs[0]]
+    spatial.link_replicas([G for G, _ in built.values()])
+    dtype = kwargs.get("dtype", torch.bfloat16)
+    bin_value = kwargs.get("bin_value", 0.5)
+    cloudy = kwargs.get("cloudy", True)
+    ignore = tuple(kwargs.get("ignore_event", ()))
+    quantize = kwargs.get("quantize", True)
+    fire_kw, smog_kw = event_kwargs(opts)
+
+    def run(xr: Rows, uniform, g_value, gray_mean=None):
+        d, s, m = G0.infer_masker_rows(xr)
+        out = {}
+        if "flood" not in ignore:
+            mb = (m.map(lambda p: (p > bin_value).to(dtype))
+                  if bin_value >= 0 else m)
+            out["flood"] = (G0.paint_cloudy_rows(mb, xr, s, uniform)
+                            if cloudy else G0.paint_rows(mb, xr))
+        if "wildfire" not in ignore:
+            out["wildfire"] = add_fire_rows(
+                xr.map(lambda p: p.float()), s.map(lambda p: p.float()),
+                g_value, gray_mean=gray_mean, **fire_kw)
+        if "smog" not in ignore:
+            out["smog"] = add_smog_rows(xr.map(lambda p: p.float()),
+                                        d.map(lambda p: p.float()), **smog_kw)
+        if quantize:
+            # per image, with the whole image's min-max
+            out = {k: spatial.normalize(v).map(
+                lambda p: (p * 255.0).to(torch.uint8)) for k, v in out.items()}
+        out["mask"] = m
+        return {k: spatial.gather_rows(v, xr.devices[0], nhwc=True)
+                for k, v in out.items()}
+
+    return devs, G0, infer0, run
+
+
+def build_spatial_infer_fn(opts, devices: Sequence, divide_rows: bool = False,
+                           **kwargs) -> Tuple[OmniGenerator, callable]:
+    """``build_infer_fn`` with each image's rows split over ``devices`` (a
+    device may repeat) in one process; returns ``(G of the first device,
+    infer)`` with ``infer``'s signature (no ``z``: the row-sharded painter
+    is a ``no_z`` one). Every map of the forward is split by the
+    partition rule of ``parallel/spatial.py`` and each shard runs on its
+    device; every kernel launches once per shard with rows (``spade_cond``
+    on each SPADE's conditioning window), and the outputs come back as one
+    batch on the first device. As the single forward: the draws are made
+    once, in its order, from ``generator`` (else the first device's
+    generator); every per-image reduction is the whole image's.
+    ``divide_rows``: each batch runs on the first ``spatial_size(rows,
+    len(devices))`` devices, the JAX CLI's rule (with a note on stderr
+    where that leaves devices idle); else on all of them, evenly or not.
+    One device is the plain forward. Configurations other than the
+    default are refused (ROADMAP A.11b-3)."""
+    if len(devices) == 1:
+        return build_infer_fn(opts, device=devices[0], **kwargs)
+    devs, G0, infer0, run = _row_replicas(opts, devices, kwargs)
+    dtype = kwargs.get("dtype", torch.bfloat16)
+    ignore = tuple(kwargs.get("ignore_event", ()))
+    cloudy = kwargs.get("cloudy", True)
+    noted = set()
+
+    @torch.inference_mode()
+    def infer(x, uniform: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None,
+              g_value=None, z: Optional[torch.Tensor] = None):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        k = len(devs)
+        if divide_rows:
+            k = spatial_size(x.shape[1], len(devs))
+            if k < len(devs) and k not in noted:
+                noted.add(k)
+                print(f"WARNING: {x.shape[1]} rows do not split evenly over "
+                      f"{len(devs)} devices; using {k}", file=sys.stderr)
+        if k == 1:
+            return infer0(x, uniform, generator, g_value, z)
+        if z is not None:
+            raise ValueError("row-sharded inference takes no painter z")
+        uniform, _, g_value = draws(G0, x.shape, ignore, cloudy, uniform,
+                                    None, g_value, generator, devs[0])
+        return run(spatial.shard_rows(x, devs[:k], dtype, dim=1), uniform,
+                   g_value)
+
+    return G0, infer
+
+
+def build_hybrid_infer_fn(opts, devices: Sequence, sp: int, **kwargs
+                          ) -> Tuple[OmniGenerator, callable]:
+    """Data x rows: ``devices`` (a device may repeat) as len // sp data
+    groups of sp adjacent devices (``mesh.hybrid_groups``); a batch of n
+    runs on the first ``mesh_size(n, groups)`` groups, group g on batch
+    rows [g n / dp, (g + 1) n / dp), each image's rows split over the
+    group's devices (``build_spatial_infer_fn``'s forward). The draws are
+    made once for the whole batch and the wildfire's gray mean is the whole
+    batch's, from every group's sums, as ``build_mesh_infer_fn`` does; the
+    outputs come back as one batch on the first device. sp = 1 is
+    ``build_mesh_infer_fn``."""
+    if sp == 1:
+        return build_mesh_infer_fn(opts, devices, **kwargs)
+    groups = hybrid_groups(devices, len(devices) // sp, sp)
+    devs, G0, infer0, run = _row_replicas(
+        opts, [d for g in groups for d in g], kwargs)
+    groups = hybrid_groups(devs, len(groups), sp)
+    dtype = kwargs.get("dtype", torch.bfloat16)
+    ignore = tuple(kwargs.get("ignore_event", ()))
+    cloudy = kwargs.get("cloudy", True)
+    first = devs[0]
+
+    @torch.inference_mode()
+    def infer(x, uniform: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None,
+              g_value=None, z: Optional[torch.Tensor] = None):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        if z is not None:
+            raise ValueError("row-sharded inference takes no painter z")
+        n = x.shape[0]
+        dp = mesh_size(n, len(groups))
+        uniform, _, g_value = draws(G0, x.shape, ignore, cloudy, uniform,
+                                    None, g_value, generator, first)
+        per = n // dp
+        xrs = [spatial.shard_rows(x[g * per:(g + 1) * per], groups[g], dtype,
+                                  dim=1) for g in range(dp)]
+        gray_mean = None
+        if "wildfire" not in ignore and dp > 1:
+            sums = [gray_sum_rows(warm_rows(xr.map(lambda p: p.float())))
+                    for xr in xrs]
+            total = sum(s.to(first) for s, _ in sums)
+            gray_mean = (total / sum(c for _, c in sums)).float()
+        outs = [run(xr, uniform, g_value,
+                    None if gray_mean is None else gray_mean.to(groups[g][0]))
+                for g, xr in enumerate(xrs)]
         return gather(outs, first)
 
     return G0, infer

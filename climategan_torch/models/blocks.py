@@ -22,8 +22,12 @@ from climategan_torch.models.norms import (
     nhwc,
     pack_dual,
     pack_fits,
+    spade_cond_rows,
+    spade_windows,
 )
 from climategan_torch.ops.interpolate import resize, upsample_nearest
+from climategan_torch.parallel import spatial
+from climategan_torch.parallel.spatial import Rows
 
 _PAD_MODES = {"zero": "constant", "reflect": "reflect", "replicate": "replicate"}
 
@@ -52,12 +56,22 @@ class UpsampleNearest(nn.Module):
     def forward(self, x, update_sn: bool = False):
         return upsample_nearest(x, 2)
 
+    def forward_rows(self, x: Rows) -> Rows:
+        return spatial.upsample_nearest(x, 2)
+
 
 def run_layers(layers: nn.Sequential, x: torch.Tensor,
                update_sn: bool) -> torch.Tensor:
     """A Sequential of update_sn-taking layers, in order."""
     for layer in layers:
         x = layer(x, update_sn=update_sn)
+    return x
+
+
+def run_layers_rows(layers: nn.Sequential, x: Rows) -> Rows:
+    """``run_layers`` on a row-sharded map (eval mode)."""
+    for layer in layers:
+        x = layer.forward_rows(x)
     return x
 
 
@@ -103,6 +117,17 @@ class Conv2dBlock(nn.Module):
             x = instance_norm(x)
         return activation(x, self.activation)
 
+    def forward_rows(self, x: Rows) -> Rows:
+        """The eval forward on a row-sharded map: the pad is applied where a
+        window crosses the image's top or bottom."""
+        mode = "zero" if self.pad_mode == "constant" else self.pad_mode
+        x = spatial.conv2d(x, self.conv, pad=self.padding, mode=mode)
+        if self.norm is not None:
+            x = spatial.apply(x, self.norm)
+        elif self.instance:
+            x = spatial.instance_norm(x)
+        return x.map(lambda p: activation(p, self.activation))
+
 
 class ResBlock(nn.Module):
     def __init__(self, dim: int, norm: str, activ: str, pad_type: str):
@@ -117,6 +142,9 @@ class ResBlock(nn.Module):
     def forward(self, x, update_sn: bool = False):
         return x + run_layers(self.model, x, update_sn)
 
+    def forward_rows(self, x: Rows) -> Rows:
+        return x.zip(run_layers_rows(self.model, x), torch.add)
+
 
 class ResBlocks(nn.Module):
     def __init__(self, num_blocks: int, dim: int, norm: str, activ: str,
@@ -127,6 +155,9 @@ class ResBlocks(nn.Module):
 
     def forward(self, x, update_sn: bool = False):
         return run_layers(self.model, x, update_sn)
+
+    def forward_rows(self, x: Rows) -> Rows:
+        return run_layers_rows(self.model, x)
 
 
 class BaseDecoder(nn.Module):
@@ -182,6 +213,26 @@ class BaseDecoder(nn.Module):
             z = self.merge_feats_conv(torch.cat([low_level_feat, z], dim=1),
                                       update_sn)
         return run_layers(self.model, z, update_sn)
+
+    def forward_rows(self, z, z_depth: Optional[Rows] = None) -> Rows:
+        """``forward`` (eval) on row-sharded maps: ``z`` a ``Rows`` or
+        (high, low) ``Rows``."""
+        low_level_feat = None
+        if isinstance(z, (list, tuple)):
+            if not self.use_low_level:
+                z = z[0]
+            else:
+                z, low = z
+                low = self.low_level_conv.forward_rows(low)
+                low_level_feat = spatial.resize(low, (z.h, z.w), "bilinear",
+                                                align_corners=False)
+        if z_depth is not None and self.use_dada:
+            z = z.zip(z_depth, torch.mul)
+        if self.proj_conv is not None:
+            z = self.proj_conv.forward_rows(z)
+        if low_level_feat is not None:
+            z = self.merge_feats_conv.forward_rows(low_level_feat.cat(z))
+        return run_layers_rows(self.model, z)
 
 
 class SPADEResnetBlock(nn.Module):
@@ -265,6 +316,36 @@ class SPADEResnetBlock(nn.Module):
         dx = self.conv_1(lrelu(norm(self.norm_1, dx)), update_sn)
         out = x_s + dx
         return lrelu(out) if self.last_activation == "lrelu" else out
+
+    def forward_rows(self, x: Rows, cond: Rows) -> Rows:
+        """The eval forward on a row-sharded ``x`` with instance-norm SPADEs;
+        ``cond`` the row-sharded conditioning map at any size. Each shard's
+        ``spade_cond`` launches run on the conditioning rows of its own
+        rows with a 2-row halo (``norms.spade_windows``)."""
+        if self.training or self.norm_0.param_free_norm is not None:
+            raise ValueError("row-sharded SPADE blocks run in eval mode with "
+                             "instance norms")
+        dtype = x.dtype
+        seg = spatial.Resized(cond, (x.h, x.w), "nearest")
+        wins = spade_windows(x, seg)
+        normed = spatial.instance_norm(x)
+        if self.learned_shortcut:
+            gbs = spade_cond_rows(wins, lambda d: spatial.local(
+                self, d).current_shortcut_pack(dtype))
+            x_s = spatial.conv2d(SPADE.modulate_rows(normed, gbs, 0),
+                                 self.conv_s)
+            dx = SPADE.modulate_rows(normed, gbs, 1)
+        else:
+            gbs = spade_cond_rows(wins, lambda d: spatial.local(
+                self.norm_0, d).current_pack(dtype))
+            x_s, dx = x, SPADE.modulate_rows(normed, gbs, 0)
+        dx = spatial.conv2d(dx.map(lrelu), self.conv_0)
+        gbs = spade_cond_rows(wins, lambda d: spatial.local(
+            self.norm_1, d).current_pack(dtype))
+        dx = SPADE.modulate_rows(spatial.instance_norm(dx), gbs, 0)
+        dx = spatial.conv2d(dx.map(lrelu), self.conv_1)
+        out = x_s.zip(dx, torch.add)
+        return out.map(lrelu) if self.last_activation == "lrelu" else out
 
 
 def pack_spade_weights(model: nn.Module) -> None:

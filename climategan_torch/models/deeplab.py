@@ -11,7 +11,7 @@ mobilenet backbone the decoder is the separable ``head``
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -19,6 +19,8 @@ import torch.nn as nn
 from climategan_torch.models.mobilenet import DeepLabHead
 from climategan_torch.models.norms import BatchNorm2d
 from climategan_torch.ops.interpolate import resize
+from climategan_torch.parallel import spatial
+from climategan_torch.parallel.spatial import Rows
 
 
 class ConvBN(nn.Module):
@@ -31,6 +33,9 @@ class ConvBN(nn.Module):
 
     def forward(self, x):
         return self.bn(self.conv(x))
+
+    def forward_rows(self, x: Rows) -> Rows:
+        return spatial.apply(spatial.conv2d(x, self.conv), self.bn)
 
 
 class ASPP(nn.Module):
@@ -46,6 +51,14 @@ class ASPP(nn.Module):
         feat = torch.cat([self.conv1(x), self.conv2(x), self.conv3(x),
                           self.conv4(x)], dim=1)
         return self.conv_out(feat)
+
+    def forward_rows(self, x: Rows) -> Rows:
+        """Dilations 6, 12 and 18 read across shards; ``conv_out``'s
+        padding makes the output h + 2 rows, split by the partition rule
+        of its own height."""
+        feats = [c.forward_rows(x) for c in (self.conv1, self.conv2,
+                                             self.conv3, self.conv4)]
+        return self.conv_out.forward_rows(feats[0].cat(*feats[1:]))
 
 
 class DeepLabDecoder(nn.Module):
@@ -63,6 +76,15 @@ class DeepLabDecoder(nn.Module):
         up = resize(feat_aspp, feat_low.shape[-2:], "bilinear",
                     align_corners=True)
         return self.conv_out(self.conv_cat(torch.cat([low, up], dim=1)))
+
+    def forward_rows(self, feat_low: Rows, feat_aspp: Rows) -> Rows:
+        low = self.conv_low.forward_rows(feat_low)
+        up = spatial.resize(feat_aspp, (feat_low.h, feat_low.w), "bilinear",
+                            align_corners=True)
+        y = low.cat(up)
+        for block in self.conv_cat:
+            y = block.forward_rows(y)
+        return spatial.conv2d(y, self.conv_out)
 
 
 class DeepLabV3Decoder(nn.Module):
@@ -87,3 +109,12 @@ class DeepLabV3Decoder(nn.Module):
         else:
             s = self.decoder(self.aspp(z_high), z_low)
         return resize(s, self.target_size, "bilinear", align_corners=True)
+
+    def forward_rows(self, z, z_depth: Optional[Rows] = None) -> Rows:
+        """The eval forward (ASPP decoder) on row-sharded maps."""
+        z_high, z_low = z
+        if z_depth is not None and self.use_dada:
+            z_high = z_high.zip(z_depth, torch.mul)
+        s = self.decoder.forward_rows(self.aspp.forward_rows(z_high), z_low)
+        return spatial.resize(s, self.target_size, "bilinear",
+                              align_corners=True)

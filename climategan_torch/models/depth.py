@@ -23,6 +23,8 @@ from climategan_torch.models.blocks import (
     UpsampleNearest,
 )
 from climategan_torch.ops.interpolate import resize
+from climategan_torch.parallel import spatial
+from climategan_torch.parallel.spatial import Rows
 
 
 class DADADepthDecoder(nn.Module):
@@ -61,6 +63,27 @@ class DADADepthDecoder(nn.Module):
             depth = resize(depth, (384, 384), "bicubic", align_corners=False)
             depth = resize(depth, (self.target_size, self.target_size),
                            "nearest")
+        return depth, z_depth
+
+    def forward_rows(self, z):
+        """The eval forward on row-sharded maps: (depth, z_depth) as
+        ``Rows``; the bicubic-384 -> nearest chain computes each shard's
+        rows from the rows they read."""
+        if isinstance(z, (list, tuple)):
+            z = z[0]
+        y = z
+        for block in (self.enc4_1, self.enc4_2, self.enc4_3):
+            y = block.forward_rows(y)
+        z_depth = None if self.dec4 is None else self.dec4.forward_rows(y)
+        if self.upsample is not None:
+            up, conv, out = self.upsample
+            y = spatial.conv2d(conv.forward_rows(up.forward_rows(y)), out)
+        depth = y.map(lambda p: torch.mean(p, dim=1, keepdim=True))
+        if depth.w != self.target_size:
+            t = self.target_size
+            depth = spatial.Resized(
+                spatial.Resized(depth, (384, 384), "bicubic"), (t, t),
+                "nearest").rows(depth.devices)
         return depth, z_depth
 
 

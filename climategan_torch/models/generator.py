@@ -34,7 +34,9 @@ from climategan_torch.models.painter import PainterSpadeDecoder
 from climategan_torch.models.resnet import ResNetEncoder
 from climategan_torch.ops.image import normalize
 from climategan_torch.ops.interpolate import resize
-from climategan_torch.ops.perlin import mix_noise
+from climategan_torch.ops.perlin import blend_noise, mix_noise, shifted_noise
+from climategan_torch.parallel import spatial
+from climategan_torch.parallel.spatial import Rows
 
 # the Perlin grid of paint_cloudy's sky probe: (8 + 1) x (8 + 1) uniforms
 CLOUDY_RES = (8, 8)
@@ -336,6 +338,82 @@ class OmniGenerator(nn.Module):
         fake = self.paint(m, noised.to(x.dtype), no_paste=True, z=z,
                           generator=generator)
         return paste(x, fake, m)
+
+    # ---- row-sharded inference --------------------------------------------
+    def infer_masker_rows(self, x: Rows):
+        """``infer_masker`` (eval) on a row-sharded image: (depth, seg
+        logits, mask) as ``Rows``."""
+        z = self.encoder.forward_rows(x)
+        d, z_depth = self.decoders["d"].forward_rows(z)
+        s = self.decoders["s"].forward_rows(z, z_depth)
+        m = self.decoders["m"].forward_rows(
+            z, z_depth if self.cfg.m_use_dada else None)
+        return d, s, m.map(torch.sigmoid)
+
+    def paint_rows(self, m: Rows, x: Rows, no_paste: bool = False) -> Rows:
+        """``paint`` (eval, ``no_z``) on row-sharded maps; the paste runs on
+        each shard."""
+        m = m.map(lambda p: p.to(x.dtype))
+        fake = self.painter.forward_rows(x.zip(m, lambda a, b: a * (1.0 - b)))
+        if self.cfg.p_paste_original_content and not no_paste:
+            return paste_rows(x, fake, m)
+        return fake
+
+    def paint_cloudy_rows(self, m: Rows, x: Rows, s: Rows,
+                          uniform: torch.Tensor, sky_idx: int = 9,
+                          res: Tuple[int, int] = CLOUDY_RES,
+                          weight: float = 0.8) -> Rows:
+        """``paint_cloudy`` on row-sharded maps with the Perlin draws
+        ``uniform``: each device computes the whole noise field (its
+        minimum is the field's), each shard blends its rows."""
+        s_up = spatial.resize(s, (x.h, x.w), "bilinear", align_corners=False)
+        sky = s_up.map(lambda p: (torch.argmax(p, dim=1, keepdim=True)
+                                  == sky_idx).to(x.dtype))
+        fields = {}
+        parts = []
+        for i, (xp, sp) in enumerate(zip(x.parts, sky.parts)):
+            if xp.device not in fields:
+                fields[xp.device] = shifted_noise((x.h, x.w), res, uniform,
+                                                  device=xp.device)
+            lo, hi = x.bounds(i)
+            parts.append(blend_noise(xp, sp, fields[xp.device][lo:hi],
+                                     weight).to(x.dtype))
+        m = m.map(lambda p: p.to(x.dtype))
+        fake = self.paint_rows(m, Rows(parts), no_paste=True)
+        return paste_rows(x, fake, m)
+
+
+def check_rows(c: GenConfig) -> None:
+    """Raises unless the configuration ``c`` has row-sharded forwards:
+    the default one (ResNet encoder with the ASPP decoder, DADA depth in
+    regression, the base mask decoder, a ``no_z`` painter with
+    instance-norm SPADEs and no final shortcut), at any widths and
+    depths."""
+    other = {
+        "gen.encoder.architecture": (c.encoder_arch, "deeplabv3"),
+        "gen.deeplabv3.backbone": (c.backbone, "resnet"),
+        "gen.s.architecture": (c.s_architecture, "deeplabv3"),
+        "gen.d.architecture": (c.d_architecture, "dada"),
+        "gen.d.classify.enable": (bool(c.d_classify_buckets), False),
+        "gen.m.use_spade": (c.m_use_spade, False),
+        "gen.p.no_z": (c.p_no_z, True),
+        "gen.p.use_final_shortcut": (c.p_use_final_shortcut, False),
+        "gen.p.spade_param_free_norm": (c.p_spade_param_free_norm,
+                                        "instance"),
+    }
+    bad = [f"{k}={v!r}" for k, (v, want) in other.items() if v != want]
+    if bad:
+        raise NotImplementedError(
+            "row-sharded inference (--spatial, --hybrid) runs the default "
+            "generator configuration; " + ", ".join(bad) + " is not "
+            "row-sharded yet (ROADMAP A.11b-3)")
+
+
+def paste_rows(x: Rows, fake: Rows, m: Rows) -> Rows:
+    """``paste`` on each shard: one ``masked_blend`` launch per shard with
+    rows."""
+    return Rows([paste(a, b, c) if a.shape[2] else a
+                 for a, b, c in zip(x.parts, fake.parts, m.parts)])
 
 
 def create_generator(opts, seed: int = 0) -> OmniGenerator:

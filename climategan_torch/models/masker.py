@@ -40,6 +40,10 @@ class MaskBaseDecoder(BaseDecoder):
     def forward(self, z, cond=None, z_depth=None, update_sn: bool = False):
         return super().forward(z, z_depth, update_sn)
 
+    def forward_rows(self, z, z_depth=None):
+        """Mask logits of row-sharded features (eval)."""
+        return super().forward_rows(z, z_depth)
+
 
 class MaskSpadeDecoder(nn.Module):
     def __init__(self, latent_dim: int = 128, cond_nc: int = 15,

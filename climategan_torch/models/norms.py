@@ -38,6 +38,11 @@ from climategan_torch.kernels.spade_cond import (
     spade_cond_packed,
 )
 from climategan_torch.parallel import distributed
+from climategan_torch.parallel.spatial import Rows
+
+# rows of conditioning a spade_cond launch reads beyond its output rows on
+# each side: two stacked 3x3 convs
+SPADE_HALO = 2
 
 
 def _l2normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -362,6 +367,13 @@ class SPADE(nn.Module):
         beta = gb[..., nc:].permute(0, 3, 1, 2)
         return normalized * (1.0 + gamma) + beta
 
+    @staticmethod
+    def modulate_rows(normalized: Rows, gbs, branch: int) -> Rows:
+        """``modulate`` on each shard with branch ``branch`` of its
+        ``spade_cond_rows`` outputs (a shard without rows passes)."""
+        return Rows([p if gb is None else SPADE.modulate(p, gb[branch])
+                     for p, gb in zip(normalized.parts, gbs)])
+
     def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
         """``seg``: NHWC conditioning map already at x's spatial size."""
         (gb,) = spade_cond_packed(seg, self.current_pack(seg.dtype))
@@ -412,6 +424,40 @@ def pack_dual(norm_a: SPADE, norm_b: SPADE,
     return make_pack(pack_spade_cond, *cast_weights(
         dtype, torch.cat([ka, kb], dim=-1), torch.cat([ba, bb]),
         [norm_a.branch(), norm_b.branch()]))
+
+
+def spade_windows(x: Rows, seg):
+    """Per shard of ``x``: (the NHWC conditioning rows [lo - 2, hi + 2) of
+    its rows [lo, hi), clipped to the image, in x's dtype; the offset of
+    row lo in it), or None for a shard without rows. ``seg`` gives the
+    conditioning map at x's size (``spatial.Resized``). ``spade_cond``'s
+    convs zero-pad at the window's edge as at the image's, so its output
+    rows [lo, hi) on the window are those of the whole map."""
+    out = []
+    for i, dev in enumerate(x.devices):
+        lo, hi = x.bounds(i)
+        if lo == hi:
+            out.append(None)
+            continue
+        wlo, whi = max(lo - SPADE_HALO, 0), min(hi + SPADE_HALO, x.h)
+        out.append((nhwc(seg.fetch(wlo, whi, dev).to(x.dtype)), lo - wlo,
+                    hi - lo))
+    return out
+
+
+def spade_cond_rows(windows, pack_of):
+    """``spade_cond_packed`` on each shard's window (``spade_windows``)
+    with the pack ``pack_of(device)``, its outputs cropped to the shard's
+    rows; None for a shard without rows."""
+    outs = []
+    for win in windows:
+        if win is None:
+            outs.append(None)
+            continue
+        seg, off, n = win
+        gbs = spade_cond_packed(seg, pack_of(seg.device))
+        outs.append([g[:, off:off + n] for g in gbs])
+    return outs
 
 
 @contextlib.contextmanager

@@ -25,6 +25,8 @@ import torch.nn as nn
 from climategan_torch.models.blocks import SPADEResnetBlock, lrelu
 from climategan_torch.models.norms import BatchNorm2d, SNConv
 from climategan_torch.ops.interpolate import resize, upsample_nearest
+from climategan_torch.parallel import spatial
+from climategan_torch.parallel.spatial import Rows
 
 
 class PainterSpadeDecoder(nn.Module):
@@ -74,3 +76,19 @@ class PainterSpadeDecoder(nn.Module):
                 self.final_shortcut_conv(y, update_sn)))
         y = self.final_spade(y, cond, update_sn)
         return torch.tanh(self.conv_img(lrelu(y)))
+
+    def forward_rows(self, cond: Rows) -> Rows:
+        """The eval forward of a ``no_z`` painter without the final shortcut
+        on a row-sharded ``cond``. Its first maps (H / 2^spade_n_up rows)
+        may give a shard no rows."""
+        if not hasattr(self, "fc") or hasattr(self, "final_shortcut_conv"):
+            raise ValueError("row-sharded painting takes a no_z painter "
+                             "without the final shortcut (ROADMAP A.11b-3)")
+        zh = cond.h // 2 ** self.spade_n_up
+        zw = cond.w // 2 ** self.spade_n_up
+        z = spatial.conv2d(spatial.resize(cond, (zh, zw), "nearest"), self.fc)
+        y = self.head_0.forward_rows(z, cond)
+        for block in (self.G_middle_0, self.G_middle_1, *self.up_spades):
+            y = block.forward_rows(spatial.upsample_nearest(y), cond)
+        y = self.final_spade.forward_rows(y, cond)
+        return spatial.conv2d(y.map(lrelu), self.conv_img).map(torch.tanh)

@@ -13,6 +13,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from climategan_torch.models.norms import BatchNorm2d
+from climategan_torch.parallel import spatial
+from climategan_torch.parallel.spatial import Rows
 
 
 class Bottleneck(nn.Module):
@@ -38,6 +40,16 @@ class Bottleneck(nn.Module):
         y = self.bn3(self.conv3(y))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(y + residual)
+
+    def forward_rows(self, x: Rows) -> Rows:
+        """The eval forward on a row-sharded map (eval batch norms act on
+        each row alone)."""
+        y = spatial.apply(spatial.conv2d(x, self.conv1), self.bn1).map(F.relu)
+        y = spatial.apply(spatial.conv2d(y, self.conv2), self.bn2).map(F.relu)
+        y = spatial.apply(spatial.conv2d(y, self.conv3), self.bn3)
+        residual = x if self.downsample is None else spatial.apply(
+            spatial.conv2d(x, self.downsample[0]), self.downsample[1])
+        return y.zip(residual, lambda a, b: F.relu(a + b))
 
 
 class ResNetEncoder(nn.Module):
@@ -74,3 +86,22 @@ class ResNetEncoder(nn.Module):
         low = self.layer1(y)
         y = self.layer4(self.layer3(self.layer2(low)))
         return y, low
+
+    def forward_rows(self, x: Rows):
+        """The eval forward on a row-sharded image: (z_high, z_low) as
+        ``Rows``. The stem's 7x7/2 conv and the max pool (-inf beyond the
+        image) read across shards, as do layer3's and layer4's dilated
+        convs (up to 16 rows at output stride 8)."""
+        y = spatial.apply(spatial.conv2d(x, self.conv1), self.bn1).map(F.relu)
+        y = spatial.max_pool2d(y, 3, 2, 1)
+        low = _layer_rows(self.layer1, y)
+        y = low
+        for layer in (self.layer2, self.layer3, self.layer4):
+            y = _layer_rows(layer, y)
+        return y, low
+
+
+def _layer_rows(layer: nn.Sequential, x: Rows) -> Rows:
+    for block in layer:
+        x = block.forward_rows(x)
+    return x

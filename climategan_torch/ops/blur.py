@@ -13,6 +13,7 @@ The products run in full float32: the port leaves PyTorch's default
 from __future__ import annotations
 
 import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,12 +67,15 @@ def _on_device(kind: str, size: int, a, b, device: torch.device) -> torch.Tensor
     return torch.from_numpy(host).to(device)
 
 
-def gaussian_blur(x: torch.Tensor, kernel_size: int,
-                  sigma: float) -> torch.Tensor:
+def gaussian_blur(x: torch.Tensor, kernel_size: int, sigma: float,
+                  rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Separable reflect-border Gaussian blur of NCHW ``x`` in float32,
-    returned in ``x``'s dtype."""
+    returned in ``x``'s dtype; with ``rows`` = (lo, hi), only those rows of
+    the blurred map (a row shard's, from the whole ``x``)."""
     H, W = x.shape[-2:]
     Bh = _on_device("blur", H, kernel_size, float(sigma), x.device)
+    if rows is not None:
+        Bh = Bh[rows[0]:rows[1]]
     Bw = _on_device("blur", W, kernel_size, float(sigma), x.device)
     y = torch.matmul(Bh, x.float())
     return torch.matmul(y, Bw.t()).to(x.dtype)

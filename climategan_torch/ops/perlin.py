@@ -68,14 +68,30 @@ def rand_perlin_2d(shape: Tuple[int, int], res: Tuple[int, int],
     return math.sqrt(2.0) * lerp(lerp(n00, n10, ty), lerp(n01, n11, ty), tx)
 
 
+def shifted_noise(shape: Tuple[int, int], res: Tuple[int, int],
+                  uniform: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
+                  device=None) -> torch.Tensor:
+    """The (H, W) Perlin field minus its minimum, ``mix_noise``'s noise."""
+    noise = rand_perlin_2d(shape, res, uniform, generator, device=device)
+    return noise - noise.min()
+
+
+def blend_noise(x: torch.Tensor, mask: torch.Tensor, noise: torch.Tensor,
+                weight: float) -> torch.Tensor:
+    """``noise`` (rows of ``shifted_noise``, as many as x's) blended into
+    NCHW ``x`` where the (N,1,H,W) ``mask`` is 1."""
+    noise = noise[None, None].to(x.dtype)
+    mask = mask.to(x.dtype)
+    return mask * (weight * noise + (1 - weight) * x) + (1 - mask) * x
+
+
 def mix_noise(x: torch.Tensor, mask: torch.Tensor,
               res: Tuple[int, int] = (8, 3), weight: float = 0.1,
               uniform: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Blend min-shifted Perlin noise into NCHW ``x`` where the (N,1,H,W)
     ``mask`` is 1; one noise field is shared across the batch."""
-    noise = rand_perlin_2d(tuple(x.shape[-2:]), res, uniform, generator,
-                           device=x.device)
-    noise = (noise - noise.min())[None, None].to(x.dtype)
-    mask = mask.to(x.dtype)
-    return mask * (weight * noise + (1 - weight) * x) + (1 - mask) * x
+    noise = shifted_noise(tuple(x.shape[-2:]), res, uniform, generator,
+                          device=x.device)
+    return blend_noise(x, mask, noise, weight)

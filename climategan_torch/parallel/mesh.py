@@ -1,14 +1,17 @@
-"""The batch axis of the JAX package's ``parallel/mesh.py``: a list of
-devices for in-process replicas (serving, the bench), and a batch split
-over the ranks of a process group (training).
+"""The mesh of the JAX package's ``parallel/mesh.py``: a list of devices
+for in-process replicas (serving, the bench), a batch split over the ranks
+of a process group (training), and the device counts of row sharding.
 
-The JAX package puts one ``data`` mesh axis over its devices and lets XLA
-shard the batch; here a serving process holds one replica of the model per
-device of ``make_mesh`` and splits each batch over them, and a training
-process is one rank of a group (``distributed.py``) that takes its rows of
-the global batch (``shard_batch``) from a state that ``replicate`` made
-equal on every rank. Row sharding (``make_mesh_2d``, ``shard_hybrid``,
-``spatial_sharding``, ``shard_spatial``) waits for ROADMAP A.11b.
+The JAX package puts a ``data`` mesh axis, a ``space`` axis, or both
+(``make_mesh_2d``) over its devices and lets XLA shard the batch and the
+rows; here a serving process holds one replica of the model per device of
+``make_mesh`` and splits each batch over them, or each image's rows
+(``spatial.py``, ``inference.build_spatial_infer_fn``), or both
+(``hybrid_groups``: each data group's row shards adjacent, as
+``make_mesh_2d`` orders them). A training process is one rank of a group
+(``distributed.py``) that takes its rows of the global batch
+(``shard_batch``) from a state that ``replicate`` made equal on every
+rank; row-sharded training is ROADMAP A.11b-2.
 """
 from __future__ import annotations
 
@@ -39,6 +42,34 @@ def mesh_size(batch: int, n: int) -> int:
     """The JAX rule: the largest device count up to ``n`` that divides the
     batch."""
     return max(d for d in range(1, max(n, 1) + 1) if batch % d == 0)
+
+
+def spatial_size(rows: int, n: int) -> int:
+    """The JAX rule of ``--spatial``: the largest device count up to ``n``
+    that divides the rows."""
+    return mesh_size(rows, n)
+
+
+def hybrid_size(batch: int, rows: int, n: int, sp: int) -> int:
+    """The data-parallel size of ``--hybrid sp`` over ``n`` devices (the
+    JAX bench's rule): ``rows`` must divide by ``sp``; dp is the largest
+    divisor of the batch up to ``n // sp``."""
+    if sp < 1 or rows % sp:
+        raise ValueError(f"--hybrid {sp}: size {rows} must divide by the "
+                         "row shard count")
+    if n < sp:
+        raise ValueError(f"--hybrid {sp} needs {sp} devices, got {n}")
+    return mesh_size(batch, n // sp)
+
+
+def hybrid_groups(devices: Sequence, dp: int, sp: int
+                  ) -> List[List[torch.device]]:
+    """The dp x sp grid of ``make_mesh_2d``: data group g holds the sp
+    adjacent devices [g sp, (g + 1) sp)."""
+    devs = [torch.device(d) for d in devices]
+    if len(devs) < dp * sp:
+        raise ValueError(f"need {dp * sp} devices, have {len(devs)}")
+    return [devs[g * sp:(g + 1) * sp] for g in range(dp)]
 
 
 def shard_batch(batch, rank: int, world: int, micro: int = 1):

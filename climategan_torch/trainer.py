@@ -18,7 +18,7 @@ forward or a kernel: the evaluation and its panels run ``spade_cond`` and
 logger (comet, the PNG writer) is skipped when absent. With
 ``train.fid.enable`` the evaluation also logs the painter's FID
 (``compute_val_fid``). Options that are not ported raise a ``ValueError``
-at ``setup`` naming their ROADMAP item: spatial shards (A.11b); an orbax
+at ``setup`` naming their ROADMAP item: spatial shards (A.11b-2); an orbax
 run dir raises where it would be loaded (A.11d).
 
 Data parallel (one process per rank, ``python -m torch.distributed.run``):
@@ -77,17 +77,18 @@ def refuse_unported_trainer(opts) -> None:
     tpu = opts.get("tpu", {}) or {}
     if int(tpu.get("spatial_shards", 1) or 1) > 1:
         raise ValueError("tpu.spatial_shards > 1: row-sharded training is "
-                         "not ported yet (ROADMAP A.11b)")
+                         "not ported yet (ROADMAP A.11b-2)")
     check_data_axis(opts, distributed.world())
 
 
 def check_data_axis(opts, world: int) -> None:
     """The data axis is the process group's ``world`` ranks: ``tpu.mesh``'s
     ``data`` must be -1 (all of them) or ``world``, any other axis -1 or 1
-    (row sharding is ROADMAP A.11b), and several ranks must split each
-    per-domain batch into ``train.grad_accumulation`` micro-batches. JAX
-    leaves devices idle where the count does not divide the batch; an idle
-    rank here would hang the others' collectives, so it raises."""
+    (row-sharded training is ROADMAP A.11b-2), and several ranks must
+    split each per-domain batch into ``train.grad_accumulation``
+    micro-batches. JAX leaves devices idle where the count does not divide
+    the batch; an idle rank here would hang the others' collectives, so it
+    raises."""
     mesh = (opts.get("tpu", {}) or {}).get("mesh", {}) or {}
     for axis, v in mesh.items():
         if axis == "data" and int(v) not in (-1, world):
@@ -98,7 +99,8 @@ def check_data_axis(opts, world: int) -> None:
                 "climategan_torch.train ...) or set it to -1")
         if axis != "data" and int(v) not in (-1, 1):
             raise ValueError(f"tpu.mesh.{axis}={int(v)}: only the data axis "
-                             "is ported (row sharding: ROADMAP A.11b)")
+                             "is ported (row-sharded training: ROADMAP "
+                             "A.11b-2)")
     micro = int(opts.train.get("grad_accumulation", 1) or 1)
     sizes = {"data.loaders.batch_size":
              int(opts.data.loaders.get("batch_size", 4))}

@@ -122,16 +122,39 @@ def test_cli_wildfire_has_the_shape_and_varies(served):
 
 
 def test_cli_refuses_multi_gpu_flags(setup, served, capsys):
-    """``--spatial`` (row sharding) exits naming ROADMAP A.11b; ``--mesh``
-    on one device serves the same PNGs as without it, bit for bit."""
+    """``--spatial`` parses (and with ``--mesh`` exits: rows or batch); on
+    one device it serves one shard and says so; over ``["cpu", "cpu"]``
+    (``load_model(args, devices=...)``) it serves PNGs within 1 LSB of the
+    unsharded CLI's. ``--mesh`` on one device serves the same PNGs as
+    without it, bit for bit."""
     import cv2
 
+    run, root = setup
     with pytest.raises(SystemExit):
-        port_cli.parse_args(["-i", ".", "--spatial"])
-    assert "ROADMAP A.11b" in capsys.readouterr().err
+        port_cli.parse_args(["-i", ".", "--spatial", "--mesh"])
+    assert "exclusive" in capsys.readouterr().err
+    args = port_cli.parse_args(["-i", str(root / "imgs"), "-r", str(run),
+                                "--keep_ratio_128", "-b", "2", "--no_cloudy",
+                                "--spatial", "--device", "cpu"])
+    assert args.spatial
+    assert port_cli.mesh_devices(args) == [torch.device("cpu")]
+    port_cli.load_model(args)
+    assert "one shard" in capsys.readouterr().err
+    images = [(p.stem, cv2.imread(str(p))[..., ::-1])
+              for p in port_cli.find_images(root / "imgs")]
+    split = {}
+    port_cli.render(images, args,
+                    lambda name, event, img: split.__setitem__(
+                        f"{name}_{event}.png", img),
+                    infer=port_cli.load_model(args, devices=["cpu", "cpu"]))
+    _, names = served
+    assert sorted(split) == names
+    for name, got in split.items():
+        want = cv2.imread(str(root / "port" / name))[..., ::-1]
+        diff = np.abs(got.astype(int) - want.astype(int))
+        assert np.mean(diff <= 1) >= 0.999, (name, diff.max())
     args = port_cli.parse_args(["-i", ".", "--mesh", "--device", "cpu"])
     assert port_cli.mesh_devices(args) == [torch.device("cpu")]
-    run, root = setup
     assert port_cli.main(["-i", str(root / "imgs"), "-r", str(run),
                           "--keep_ratio_128", "-b", "2", "--no_cloudy",
                           "--mesh", "-o", str(root / "mesh"),
@@ -248,17 +271,19 @@ def test_bench_defaults_match_the_root_bench():
 
 @pytest.mark.parametrize("flags", (["--mesh"], ["--spatial"], ["--hybrid", "2"]))
 def test_bench_refuses_multi_gpu_flags(flags, capsys):
-    """``--spatial`` and ``--hybrid`` (row sharding) exit naming ROADMAP
-    A.11b; ``--mesh`` parses without a card, for the whole forward only."""
-    if flags == ["--mesh"]:
-        assert port_bench.parse_args(flags).mesh
-        with pytest.raises(SystemExit):
-            port_bench.parse_args(flags + ["--stage", "masker"])
-        assert "--stage all" in capsys.readouterr().err
-        return
+    """``--mesh``, ``--spatial`` and ``--hybrid 2`` parse without a card,
+    for the whole forward only: another stage exits (row-sharded stages
+    naming ROADMAP A.11b-3)."""
+    args = port_bench.parse_args(flags)
+    assert (args.mesh, args.spatial, args.hybrid) == (
+        flags == ["--mesh"], flags == ["--spatial"],
+        2 if flags == ["--hybrid", "2"] else 0)
     with pytest.raises(SystemExit):
-        port_bench.parse_args(flags)
-    assert "ROADMAP A.11b" in capsys.readouterr().err
+        port_bench.parse_args(flags + ["--stage", "masker"])
+    err = capsys.readouterr().err
+    assert "--stage all" in err
+    if flags != ["--mesh"]:
+        assert "ROADMAP A.11b-3" in err
 
 
 def test_bench_flop_count_holds_every_spade_cond_call(monkeypatch):

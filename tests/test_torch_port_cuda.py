@@ -823,3 +823,90 @@ def test_two_gloo_ranks_on_one_card_step_as_one_process():
                          first_moments(want_m, opt), what=jobs[i][0]))
         hold_state((D, G)[i], (state.D, state.G)[i].state_dict(),
                    what=f"{jobs[i][0]}, the other model")
+
+
+# ---- row-sharded inference (parallel/spatial.py) ----------------------------
+
+@pytest.mark.parametrize("H", [5, 13, 40, 81])
+def test_spade_cond_kernel_on_halo_windows(H):
+    """The kernels on the conditioning windows a row shard passes them:
+    rows [lo - 2, hi + 2) of each shard's rows [lo, hi) over 2, 3 and 4
+    shards, clipped to the image (heights that are not a multiple of the
+    8-row tile, 1- and 2-row shards): f32 within 1e-4 of spade_cond_plain
+    on the same window, and the cropped outputs equal the whole map's
+    rows, f32 within 1e-4 of the plain version's and bf16 bit for bit the
+    tensor-core kernel's own on the whole map (each output sums the same
+    taps in the same order wherever its tile starts). The bf16 kernel's
+    error against the f32 plain version on the whole map is printed."""
+    from climategan_torch.kernels.spade_cond import pack_spade_cond
+    from climategan_torch.parallel.spatial import split
+
+    dev = _device()
+    seg, k1, b1, branches = _to(_spade_args(N=2, H=H, W=40, cnc=3,
+                                            hids=(128, 128), ncs=(40, 40)),
+                                dev, torch.float32)
+    whole = spade_cond_plain(seg, k1, b1, branches)
+    packs = {dt: pack_spade_cond(*_to((seg, k1, b1, branches), dev, dt)[1:])
+             for dt in (torch.float32, torch.bfloat16)}
+    whole16 = spade_cond_packed(seg.bfloat16(), packs[torch.bfloat16])
+    ref = spade_cond_plain(*_to((seg.bfloat16(), k1, b1, branches), dev,
+                                torch.float32))
+    for g, w in zip(whole16, ref):
+        ulp = 2.0 ** (torch.floor(torch.log2(w.abs().max())) - 7)
+        err = (g.float() - w).abs().max()
+        print(f"H {H}: bf16 whole map max error {err:.3e} (one ulp of the "
+              f"scale {ulp:.3e})")
+    for k in (2, 3, 4):
+        for lo, hi in split(H, k):
+            if lo == hi:
+                continue
+            wlo, whi = max(lo - 2, 0), min(hi + 2, H)
+            win = seg[:, wlo:whi].contiguous()
+            want = spade_cond_plain(win, k1, b1, branches)
+            reset_launches()
+            got = spade_cond_packed(win, packs[torch.float32])
+            bf = spade_cond_packed(win.bfloat16(), packs[torch.bfloat16])
+            torch.cuda.synchronize()
+            assert launches["spade_cond"] == 2
+            for g, w, full in zip(got, want, whole):
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+                torch.testing.assert_close(g[:, lo - wlo:hi - wlo],
+                                           full[:, lo:hi], rtol=1e-4,
+                                           atol=1e-4)
+            for g, full in zip(bf, whole16):
+                assert torch.equal(g[:, lo - wlo:hi - wlo], full[:, lo:hi])
+
+
+def test_spatial_forward_on_a_repeated_card_matches_the_unsharded():
+    """The tiny model (64^2, f32, TF32 off) row-sharded over ["cuda:0"] *
+    2 against its unsharded forward on the card: every event within 1 LSB
+    on >= 99.9% of values, the mask within 1e-5; each kernel launched once
+    per shard (spade_cond twice per SPADE block, 14 per shard with the
+    tiny painter's 7 blocks: every shard has rows of every painter map)."""
+    from climategan_torch.inference import (
+        build_infer_fn,
+        build_spatial_infer_fn,
+    )
+    from tests.torch_port_common import port_tiny_opts
+
+    dev = _device()
+    opts = port_tiny_opts(64)
+    g = torch.Generator().manual_seed(4)
+    x = (torch.rand((2, 64, 64, 3), generator=g) * 2 - 1).to(dev)
+    u = torch.rand((9, 9), generator=g).to(dev)
+    kw = dict(dtype=torch.float32, seed=3)
+    want = build_infer_fn(opts, device=dev, **kw)[1](x, uniform=u,
+                                                     g_value=120.0)
+    _, infer = build_spatial_infer_fn(opts, ["cuda:0"] * 2, **kw)
+    infer(x, uniform=u, g_value=120.0)
+    reset_launches()
+    got = infer(x, uniform=u, g_value=120.0)
+    torch.cuda.synchronize()
+    assert launches == {"spade_cond": 28, "masked_blend": 2, "smog_tail": 2,
+                        "fire_color_grade": 2, "fire_paste": 2}
+    for key in ("flood", "wildfire", "smog"):
+        diff = (got[key].int() - want[key].int()).abs()
+        print(f"{key}: max {diff.max().item()} LSB, "
+              f"{100 * (diff == 0).float().mean().item():.4f}% equal")
+        assert (diff <= 1).float().mean() >= 0.999, key
+    torch.testing.assert_close(got["mask"], want["mask"], rtol=0, atol=1e-5)

@@ -9,14 +9,22 @@
 - ``add_smog`` and ``add_fire`` vs JAX's (``use_pallas=True``) on the same
   x, seg logits and depth, with JAX's ``g_value``;
 - ``build_infer_fn(ignore_event=())`` at tiny_opts(64) vs the JAX ``infer``
-  on the same converted weights, Perlin draws and ``g_value``;
+  on the same converted weights, Perlin draws and ``g_value``, and the
+  same model row-sharded over 2, 3 and 4 CPU shards
+  (``build_spatial_infer_fn``; at 64^2, 3 shards split the maps unevenly
+  and 4 give the encoder 2-row shards under layer4's 16-row dilation) vs
+  the same JAX ``infer`` and vs the unsharded port;
 - the kernel wrappers' CPU dispatch and checks.
 
 Bars: ``smog_tail`` rtol = atol = 1e-5 (the JAX package's own Pallas-vs-jnp
 bar); the fire kernels within 1.0 and equal on >= 99.9% of values (a floor
 step crossed by the CPU's own multiply-add contraction); events within 1
-uint8 LSB (PARITY.md, "Round 3 additions"); mask within 1e-4. The measured
-errors print under ``pytest -s``.
+uint8 LSB (PARITY.md, "Round 3 additions"); mask within 1e-4. The
+row-sharded forward: within 1 LSB of JAX's, the mask within 1e-4 (the JAX
+package's own bar for its row-sharded forward against its single one,
+tests/test_mesh_equivalence.py); against the unsharded port within 1 LSB
+on >= 99.9% of values, the mask within 1e-5. The measured errors print
+under ``pytest -s``.
 """
 import jax
 import jax.numpy as jnp
@@ -36,7 +44,10 @@ from climategan_tpu.ops.pallas import events as jax_events
 from climategan_tpu.utils.bn_fold import bake_spectral_norm
 from climategan_torch.events.fire import add_fire, increase_sky_mask
 from climategan_torch.events.smog import add_smog
-from climategan_torch.inference import build_infer_fn
+from climategan_torch.inference import (
+    build_infer_fn,
+    build_spatial_infer_fn,
+)
 from climategan_torch.kernels import launches, reset_launches
 from climategan_torch.kernels.fire_color_grade import (
     fire_color_grade,
@@ -243,6 +254,9 @@ def test_add_fire_renders_sky_and_pins_the_range(events):
 
 # ---- the slice as a whole ------------------------------------------------
 
+SHARDS = (2, 3, 4)
+
+
 @pytest.fixture(scope="module")
 def infer_runs():
     jopts, topts, G, V, _ = tiny_pair(64, seed=3)
@@ -257,14 +271,22 @@ def infer_runs():
     want = {k: np.asarray(v) for k, v in jinfer(baked, x, rng).items()}
     with frozen_spectral():
         jseg = np.asarray(G.apply(baked, x, method="infer_masker")[1])
+    state_dict = state_dict_from_jax(V, GenConfig.from_opts(topts))
     tG, infer = build_infer_fn(
         topts, dtype=torch.float32, ignore_event=(), device="cpu",
-        state_dict=state_dict_from_jax(V, GenConfig.from_opts(topts)))
+        state_dict=state_dict)
     got = {k: v.numpy() for k, v in infer(torch.from_numpy(x), uniform=uniform,
                                           g_value=g_value).items()}
     with torch.no_grad():
         tseg = to_nhwc(tG.infer_masker(nchw(x))[1])
-    return {"want": want, "got": got,
+    spatial = {}
+    for k in SHARDS:
+        _, sinfer = build_spatial_infer_fn(
+            topts, ["cpu"] * k, dtype=torch.float32, ignore_event=(),
+            state_dict=state_dict)
+        spatial[k] = {key: v.numpy() for key, v in sinfer(
+            torch.from_numpy(x), uniform=uniform, g_value=g_value).items()}
+    return {"want": want, "got": got, "spatial": spatial,
             "sky": (np.asarray(jax_image.retrieve_sky_mask(jseg)),
                     np.asarray(jax_image.retrieve_sky_mask(tseg)))}
 
@@ -296,6 +318,36 @@ def test_infer_event_uint8_within_one_lsb(infer_runs, event):
     print(f"infer {event}: max {diff.max()} LSB, "
           f"{100 * np.mean(diff > 0):.4f}% of values differ")
     assert diff.max() <= 1, diff.max()
+
+
+@pytest.mark.parametrize("k", SHARDS)
+@pytest.mark.parametrize("event", ["flood", "wildfire", "smog"])
+def test_spatial_event_uint8_within_one_lsb_of_jax(infer_runs, event, k):
+    want = infer_runs["want"][event].astype(int)
+    diff = np.abs(infer_runs["spatial"][k][event].astype(int) - want)
+    print(f"{k} shards {event}: max {diff.max()} LSB of JAX's")
+    assert diff.max() <= 1, diff.max()
+
+
+@pytest.mark.parametrize("k", SHARDS)
+def test_spatial_mask_matches_jax(infer_runs, k):
+    np.testing.assert_allclose(infer_runs["spatial"][k]["mask"],
+                               infer_runs["want"]["mask"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("k", SHARDS)
+def test_spatial_matches_the_unsharded_port(infer_runs, k):
+    """The same outputs, keys and dtypes as the unsharded port; every event
+    within 1 LSB on >= 99.9% of values, the mask within 1e-5."""
+    got, want = infer_runs["spatial"][k], infer_runs["got"]
+    assert sorted(got) == sorted(want)
+    for key in ("flood", "wildfire", "smog"):
+        assert got[key].dtype == want[key].dtype
+        diff = np.abs(got[key].astype(int) - want[key].astype(int))
+        print(f"{k} shards {key}: max {diff.max()} LSB, "
+              f"{100 * np.mean(diff == 0):.4f}% equal")
+        assert np.mean(diff <= 1) >= 0.999, key
+    np.testing.assert_allclose(got["mask"], want["mask"], rtol=0, atol=1e-5)
 
 
 # ---- the wrappers on the CPU ---------------------------------------------

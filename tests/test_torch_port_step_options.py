@@ -261,18 +261,28 @@ def test_two_gloo_ranks_accumulate_as_jax_does_on_the_global_batch(
     JAX's states before each; both are held to JAX's steps on the global
     batch as the one-process steps are (each micro-batch's batch norms
     over both ranks' rows, the gradients averaged over the micro-batches
-    and summed over the ranks), and both ranks end with the same state."""
+    and summed over the ranks), and both ranks end with the same state.
+    In the same ranks, the same two steps with ``tpu.remat`` and
+    ``tpu.remat_d``: each held by ``hold_state`` to the one-process remat
+    step from the same state on the global batch, so the rematerialized
+    forwards' batch norms take their collectives as the first forwards
+    do."""
     run = accumulated
+    remat_opts = load_opts(default=_jopts({**ACCUMULATED, "tpu": {
+        "remat": True, "remat_d": True}}).to_dict())
     jobs = []
-    for i, name in enumerate(("g_step", "d_step")):
-        G, D = _models(run["topts"], run["states"][i])
-        jobs.append((name, G.state_dict(), D.state_dict(),
-                     {"draws": run["draws"][i], "aug": run["aug"][i]}))
+    for extra in ((), (remat_opts,)):
+        for i, name in enumerate(("g_step", "d_step")):
+            G, D = _models(run["topts"], run["states"][i])
+            jobs.append((name, G.state_dict(), D.state_dict(),
+                         {"draws": run["draws"][i], "aug": run["aug"][i]},
+                         *extra))
     got = run_ranks("tests.torch_port_ranks:steps", 2,
                     {"opts": run["topts"], "batch": port_batch(run["batch"]),
                      "jobs": jobs},
-                    devices=["cpu", "cpu"], backend="gloo", timeout=120)
+                    devices=["cpu", "cpu"], backend="gloo", timeout=180)
     assert [r["digest"] for r in got[1]] == [r["digest"] for r in got[0]]
+    _hold_remat_ranks(run, remat_opts, got[0][2:])
     for i, (name, res) in enumerate(zip(("g_step", "d_step"), got[0])):
         _check_metrics(res["metrics"], run["metrics"][i])
         G, D = _models(run["topts"], run["states"][i])
@@ -286,6 +296,33 @@ def test_two_gloo_ranks_accumulate_as_jax_does_on_the_global_batch(
                          mu, what=f"{name} on 2 ranks"))
         hold_state(other, want[1 - i].state_dict(),
                    what=f"{name} on 2 ranks, the other model")
+
+
+def _hold_remat_ranks(run, remat_opts, results):
+    """The two ranks' remat g_step and d_step (rank 0's ``results``), each
+    from JAX's state before it, against the one-process remat steps from
+    the same states on the global batch: losses within 1e-4 relative, the
+    stepped model by ``hold_state`` with its first moments, the other one
+    by ``hold_state`` without."""
+    builder = StepBuilder(remat_opts)
+    assert builder.remat and builder.remat_d
+    for i, (name, res) in enumerate(zip(("g_step", "d_step"), results)):
+        G, D = _models(run["topts"], run["states"][i])
+        state, metrics = getattr(builder, name)(
+            builder.state_for(G, D), port_batch(run["batch"]),
+            draws=run["draws"][i], aug=run["aug"][i])
+        _check_metrics(res["metrics"],
+                       {k: float(v) for k, v in metrics.items()})
+        got = _models(run["topts"], run["states"][i])
+        got[0].load_state_dict(res["G"])
+        got[1].load_state_dict(res["D"])
+        want = (G, D)
+        mu = first_moments(want[i], (state.g_opt, state.d_opt)[i])
+        print(hold_state(got[i], want[i].state_dict(), run["lr"][i],
+                         (res["g_mu"], res["d_mu"])[i], mu,
+                         what=f"remat {name} on 2 ranks"))
+        hold_state(got[1 - i], want[1 - i].state_dict(),
+                   what=f"remat {name} on 2 ranks, the other model")
 
 
 # ---- the pieces alone --------------------------------------------------

@@ -443,8 +443,8 @@ def test_evaluation_logs_the_painters_fid(run, monkeypatch):
     ({"tpu": {"mesh": {"data": 2}}}, "world size is 1"),
 ])
 def test_unported_options_are_refused(data, tmp_path, option, item):
-    """Row sharding names ROADMAP A.11b; a data axis of 2 in one process
-    (world size 1) says how to start the ranks."""
+    """Row-sharded training names ROADMAP A.11b-2; a data axis of 2 in one
+    process (world size 1) says how to start the ranks."""
     from climategan_torch.utils.opts import merge
 
     _, topts = _opts(data, tmp_path)

@@ -52,6 +52,28 @@ def tiny_pair(image_size: int = 64, seed: int = 0):
     return jopts, topts, G, variables, tG.eval()
 
 
+def port_tiny_opts(image_size: int = 64, **overrides):
+    """The port's opts with the overrides of the JAX package's
+    ``tiny_opts(image_size)`` (thin encoder, narrow painter, tiny targets)
+    and ``overrides`` merged on top, without JAX."""
+    from climategan_torch.utils.opts import merge
+
+    feat = max(image_size // 4, 32)
+    opts = torch_load_opts(commandline_opts={
+        "gen": {"deeplabv2": {"nblocks": [1, 1, 1, 1]},
+                "p": {"latent_dim": 32, "spade_n_up": 5},
+                "m": {"proj_dim": 16, "n_res": 1}},
+        "data": {"transforms": [
+            {"name": "resize", "ignore": False, "new_size": image_size,
+             "keep_aspect_ratio": True},
+            {"name": "resize", "ignore": False,
+             "new_size": {"default": image_size, "d": feat, "s": feat}}]},
+    })
+    if overrides:
+        merge(overrides, opts)
+    return opts
+
+
 def zeros_like_tree(variables):
     """The variable tree with every leaf zero: what the JAX package's
     ``serving.init_generator_variables`` returns for the same generator

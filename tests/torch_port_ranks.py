@@ -69,9 +69,10 @@ def _models(opts, g_sd, d_sd):
 
 def steps(device, payload) -> list:
     """Each job of the payload (a step name, the models' state dicts
-    before it, its keyword arguments), on ``device`` (TF32 off; PyTorch's
-    deterministic algorithms with ``payload["deterministic"]``), on this
-    rank's rows
+    before it, its keyword arguments, and optionally opts of its own with
+    the payload's ``train.grad_accumulation``), on ``device`` (TF32 off;
+    PyTorch's deterministic algorithms with ``payload["deterministic"]``),
+    on this rank's rows
     of the global batch from a state ``replicate`` made equal: rank 0
     returns both models, the stepped model's first moments and the metrics
     (on the CPU); every rank its state's digest."""
@@ -85,11 +86,15 @@ def steps(device, payload) -> list:
                         for d, b in payload["batch"].items()},
                        dist.rank(), dist.world(), builder.grad_accumulation)
     results = []
-    for name, g_sd, d_sd, kwargs in payload["jobs"]:
+    for job in payload["jobs"]:
+        name, g_sd, d_sd, kwargs = job[:4]
+        job_builder = builder if len(job) == 4 else StepBuilder(job[4])
+        if job_builder.grad_accumulation != builder.grad_accumulation:
+            raise ValueError("a job's opts split the batch otherwise")
         G, D = _models(opts, g_sd, d_sd)
-        state = builder.state_for(G.to(device), D.to(device))
+        state = job_builder.state_for(G.to(device), D.to(device))
         replicate(state)
-        state, metrics = getattr(builder, name)(state, mine, **kwargs)
+        state, metrics = getattr(job_builder, name)(state, mine, **kwargs)
         res = {"digest": state_digest(checkpoint_dict(state, 0))}
         if dist.is_main():
             def cpu(tree):
