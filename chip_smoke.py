@@ -98,8 +98,10 @@ Phases, any failure exits non-zero:
      epoch into train.jsonl), finite validation metrics, the epoch
      record's world size 1 and state digest that of the checkpoint,
      checkpoints/latest_ckpt.pth, latest.json and opts.json written; then
-     `python -m climategan_torch.train` (no process group) with
-     args.resume=true train.epochs=2: resumed from epoch 0 with a state
+     `climategan_torch.train.main` in this process (no process group) with
+     args.resume=true train.epochs=2 tpu.spatial_shards=2, which the one
+     card cannot give: the JAX trainer's fallback message printed, the
+     epoch unsharded, resumed from epoch 0 with a state
      whose sha256 (checkpoint.state_digest) equals the epoch-0 file's, 4
      more steps, the newest checkpoint at epoch 1, step 8; then
      apply_events main() with -r <run dir> on 2 photos (three uint8
@@ -171,7 +173,8 @@ Phases, any failure exits non-zero:
      bicubic resize: step_check.TINY_DP_OVERRIDES), deterministic
      algorithms on both sides: g_step and d_step, each from the seed-0
      state, held by hold_state against the card's one-process steps on the
-     global batch, losses within 1e-4, the ranks' states equal; (c) two
+     global batch, losses within 1e-4, the ranks' states equal (the same
+     launch also takes phase 13.d's hybrid steps); (c) two
      gloo ranks at full width, one image per rank per domain, in f32
      (train.bf16 false): every loss of (a)'s two steps within 1e-2
      relative of the one-process steps', the ranks' states equal, the
@@ -205,12 +208,35 @@ Phases, any failure exits non-zero:
      values; (d) climategan_torch.bench --spatial on ["cuda:0"] * 2 and
      --hybrid 2 on ["cuda:0"] * 4 at batch 2, one JSON line each (mfu <=
      1.05, the layout's dp and sp).
+  13. row-sharded and hybrid training (tpu.spatial_shards; the models'
+     train-mode forward_rows, the losses on rows, StepBuilder's devices=)
+     at full width (default opts, 640^2, 2 per domain, the seed-0 state),
+     the shards on ["cuda:0"] * k: (a) g_step and d_step over k = 2 and
+     4, each from the seed-0 state, against the unsharded steps: in
+     float64, every loss within SPATIAL_TRAIN_BAR relative, the stepped
+     model held by hold_state (first moments, parameters, statistics and
+     u/v), the other one's statistics and u/v; in f32 (TF32 off), every
+     loss within SPATIAL_TRAIN_BAR relative and the stepped model's first
+     moments no farther from the float64 step's than SPATIAL_TRAIN_NOISE
+     times the unsharded f32 step's distance (the card's own f32 noise,
+     at least hold_state's 1e-3); (b) in bf16, the train_step's
+     p50 ms over SPATIAL_TRAIN_TIMED steps at k = 1, 2 and 4 with the
+     peak memory, launch counts set to 0 before a step and read after
+     (masked_blend 2 k, the others 0), and at k = 2 the host and device ms
+     inside the exchanges and collectives (profiler ranges); (c) every
+     masked_blend launch of one 4-shard bf16 step recorded and held
+     against masked_blend_plain on the same shard at phase 2's bars; (d)
+     in phase 11.b's launch, g_step and d_step with each gloo rank's rows
+     over two row shards of cuda:0 (tiny, TINY_DP_OVERRIDES), held to the
+     one-process steps on the global batch as 11.b holds its steps.
 The last three lines are the card's name and power limit, the kernels JSON
 line (each kernel's launches per configuration's path; spade_cond's with
 the SPADE masker's numbers; ``ddp_train_launches``: per rank step of
 phase 11; phase 10's launches per pl4m and accumulated
 step and per FID evaluation; ``spatial_launches``: per row-sharded forward
-of phase 12.a by shard count), and {"ok": true, "device": {...}}.
+of phase 12.a by shard count; ``spatial_train_launches``: per row-sharded
+train step of phase 13.b by shard count), and {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -896,6 +922,27 @@ def train_cli(args, launcher=()) -> list:
             (run_dir / "train.jsonl").read_text().splitlines()]
 
 
+def train_in_process(args) -> tuple:
+    """``climategan_torch.train.main(args)`` in this process (no process
+    group): its train.jsonl records and its standard output."""
+    from climategan_torch import train as train_mod
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train_mod.main(args)
+    text = out.getvalue()
+    tail = "\n".join(text.splitlines()[-12:])
+    log(f"climategan_torch.train.main in this process (rc {rc}, "
+        f"{time.perf_counter() - t0:.1f} s):\n{tail}")
+    if rc != 0:
+        raise AssertionError(f"the trainer failed:\n{text[-4000:]}")
+    run_dir = Path(next(a.split("=", 1)[1] for a in args
+                        if a.startswith("output_path=")))
+    return [json.loads(line) for line in
+            (run_dir / "train.jsonl").read_text().splitlines()], text
+
+
 def epoch_record(records, epoch: int) -> dict:
     """The epoch's steps record merged with its launches record."""
     rec = {}
@@ -920,6 +967,7 @@ def trainer_phase(torch, dev) -> dict:
 
     from climategan_torch import apply_events as cli
     from climategan_torch import bench_train, kernels
+    from climategan_torch.parallel.mesh import fallback_message
     from climategan_torch.train_step import StepBuilder
     from climategan_torch.trainer import Trainer
     from climategan_torch.utils.checkpoint import read_checkpoint, state_digest
@@ -993,7 +1041,16 @@ def trainer_phase(torch, dev) -> dict:
     log(f"validation: " + ", ".join(f"{k} {v:.4f}" for k, v in val.items()))
 
     # ---- 8.2 resume into epoch 1 ---------------------------------------
-    records = train_cli(args + ["train.epochs=2", "args.resume=true"])
+    # in this process, with tpu.spatial_shards: 2, which one card cannot
+    # give: the trainer prints the JAX trainer's message and trains
+    # unsharded (JAX's rule, parallel/mesh.spatial_devices)
+    records, text = train_in_process(args + ["train.epochs=2",
+                                             "args.resume=true",
+                                             "tpu.spatial_shards=2"])
+    if (torch.cuda.device_count() < 2
+            and fallback_message(2, torch.cuda.device_count()) not in text):
+        raise AssertionError("tpu.spatial_shards=2 on one card: no fallback "
+                             "message")
     resumed = [r for r in records if "resumed_from_epoch" in r]
     want = state_digest(read_checkpoint(saved))
     if len(resumed) != 1 or resumed[0]["resumed_from_epoch"] != 0 or \
@@ -1769,8 +1826,10 @@ DP_DRAWS = ((0.05, False), (0.1, False))
 
 def dp_rank(device, payload) -> dict:
     """One rank of phase 11 (``parallel.spawn.run_ranks``): each job, a
-    step name and its draws, from the seed-0 state (``replicate``d) on this
-    rank's rows of the synthetic batch, with PyTorch's deterministic
+    step name, its draws and optionally a row shard count (phase 13.d:
+    the rank's rows split again over that many shards of its device),
+    from the seed-0 state (``replicate``d) on this rank's rows of the
+    synthetic batch, with PyTorch's deterministic
     algorithms where ``deterministic``; per job the launches, the losses
     (summed over the ranks), the state's sha256 and, on rank 0 with
     ``models``, both models and their first moments on the CPU."""
@@ -1793,12 +1852,14 @@ def dp_rank(device, payload) -> dict:
                         distributed.world(), builder.grad_accumulation)
     out = {"backend": torch.distributed.get_backend(),
            "world": distributed.world(), "jobs": []}
-    for name, draws, state in _job_states(builder, device, payload["jobs"]):
+    for name, draws, devices, state in _job_states(builder, device,
+                                                   payload["jobs"]):
         replicate(state)
         kernels.reset_launches()
         _sync(torch, device)
         t0 = time.perf_counter()
-        state, metrics = getattr(builder, name)(state, batch, draws=draws)
+        state, metrics = getattr(builder, name)(state, batch, draws=draws,
+                                                devices=devices)
         _sync(torch, device)
         rec = {"launches": dict(kernels.launches),
                "step_s": time.perf_counter() - t0,
@@ -1819,18 +1880,20 @@ def dp_rank(device, payload) -> dict:
 
 
 def _job_states(builder, device, jobs):
-    """(name, draws, state) of each job: a copy of the seed-0 models, built
-    once, with fresh optimizer states and draws' generator, as
-    ``init_state`` gives them."""
+    """(name, draws, row shards' devices or None, state) of each job (a
+    step name, its draws and optionally a row shard count): a copy of the
+    seed-0 models, built once, with fresh optimizer states and draws'
+    generator, as ``init_state`` gives them."""
     import copy
 
     first = builder.init_state(0, device)
-    for i, (name, draws) in enumerate(jobs):
+    for i, (name, draws, *shards) in enumerate(jobs):
+        devices = [device] * shards[0] if shards and shards[0] > 1 else None
         if i == len(jobs) - 1:
-            yield name, draws, first
+            yield name, draws, devices, first
         else:
-            yield name, draws, builder.state_for(copy.deepcopy(first.G),
-                                                 copy.deepcopy(first.D), 0)
+            yield name, draws, devices, builder.state_for(
+                copy.deepcopy(first.G), copy.deepcopy(first.D), 0)
 
 
 def _sync(torch, device) -> None:
@@ -1908,9 +1971,10 @@ def _plain_steps(torch, dev, payload, jobs) -> list:
     builder = StepBuilder(load_opts(path=payload["config"]))
     batch = _dp_batch(payload, dev)
     out = []
-    for name, draws, state in _job_states(builder, dev, jobs):
+    for name, draws, devices, state in _job_states(builder, dev, jobs):
         kernels.reset_launches()
-        state, metrics = getattr(builder, name)(state, batch, draws=draws)
+        state, metrics = getattr(builder, name)(state, batch, draws=draws,
+                                                devices=devices)
         _sync(torch, dev)
         out.append({"launches": dict(kernels.launches), "state": state,
                     "metrics": {k: float(v) for k, v in metrics.items()},
@@ -1921,11 +1985,70 @@ def _plain_steps(torch, dev, payload, jobs) -> list:
     return out
 
 
+def tiny_ranks(torch, dev) -> None:
+    """Phase 11.b, with phase 13.d: two gloo ranks on cuda:0 at tiny sizes,
+    each step plain and hybrid (each rank's rows over two row shards)."""
+    import copy
+
+    from climategan_torch.utils.step_check import (
+        TINY_DP_DEPTH,
+        TINY_SIZE,
+        hold_state,
+    )
+
+    # ---- 11.b two gloo ranks on cuda:0, tiny ------------------------------
+    # (with phase 13.d's hybrid steps: each rank's rows over two row shards
+    # of cuda:0, in the same launch)
+    plain_jobs = [("g_step", DP_DRAWS[0]), ("d_step", DP_DRAWS[1])]
+    tiny = {"config": _dp_config(True), "n": 2, "size": TINY_SIZE,
+            "feat": 32, "depth": TINY_DP_DEPTH, "batch_seed": 0,
+            "models": True, "deterministic": True,
+            "jobs": plain_jobs + [job + (2,) for job in plain_jobs]}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = _plain_steps(torch, dev, tiny, plain_jobs)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ranks = _launch(torch, 2, tiny, ["cuda:0", "cuda:0"], "gloo")
+    for i, (name, _, *shards) in enumerate(tiny["jobs"]):
+        mine, want_job = ranks[0]["jobs"][i], ref[i % 2]
+        what = (f"13.d {name} on 2 ranks x 2 row shards" if shards
+                else f"11.b {name}")
+        for k, v in want_job["metrics"].items():
+            if abs(mine["metrics"][k] - v) > 1e-4 * abs(v) + 1e-9:
+                raise AssertionError(f"{what} {k}: {mine['metrics'][k]}, "
+                                     f"one process {v}")
+        st = want_job["state"]
+        got_g, got_d = copy.deepcopy(st.G), copy.deepcopy(st.D)
+        got_g.load_state_dict(mine["G"])
+        got_d.load_state_dict(mine["D"])
+        j = i % 2
+        summary = hold_state((got_g, got_d)[j], (st.G, st.D)[j].state_dict(),
+                             want_job["lr"][j],
+                             (mine["g_mu"], mine["d_mu"])[j],
+                             want_job["mu"][j], what=what)
+        hold_state((got_d, got_g)[j], (st.D, st.G)[j].state_dict(),
+                   what=f"{what}, the other model")
+        if shards:
+            if mine["launches"]["masked_blend"] != 2:
+                raise AssertionError(f"{what}: launches {mine['launches']}")
+            log(f"{what} on cuda:0 (tiny, TINY_DP_OVERRIDES, one image a "
+                f"rank split over 2 row shards; in phase 11.b's launch) "
+                f"against the one-process step on the global batch: "
+                f"{len(mine['metrics'])} losses within 1e-4; {summary}; "
+                f"digests equal; a rank's launches {mine['launches']}")
+            continue
+        log(f"11.b two gloo ranks on cuda:0 (tiny, batch 2 per domain, one "
+            f"row per rank), {name} against the one-process step: "
+            f"{len(mine['metrics'])} losses within 1e-4; {summary}; digests "
+            f"equal")
+    del ref
+
+
 def parallel_phase(torch, dev, run_dir: Path) -> dict:
     """Phase 11 (see the module docstring). ``run_dir``: phase 8's, written
     by one NCCL rank of ``torch.distributed.run``. Returns each kernel's
     launches per rank step of (a)."""
-    import copy
     import tempfile
 
     import cv2
@@ -1934,11 +2057,6 @@ def parallel_phase(torch, dev, run_dir: Path) -> dict:
     from climategan_torch import apply_events as cli
     from climategan_torch import kernels
     from climategan_torch.parallel.mesh import mesh_size
-    from climategan_torch.utils.step_check import (
-        TINY_DP_DEPTH,
-        TINY_SIZE,
-        hold_state,
-    )
 
     t_phase = time.perf_counter()
     # g_step and d_step, each from the seed-0 state: the d_step's losses
@@ -1992,38 +2110,7 @@ def parallel_phase(torch, dev, run_dir: Path) -> dict:
         f"(sha256 {want[0][:16]}..., {want[1][:16]}...); launches per rank "
         f"step (g_step + d_step) {ddp}")
 
-    # ---- 11.b two gloo ranks on cuda:0, tiny ------------------------------
-    tiny = {"config": _dp_config(True), "n": 2, "size": TINY_SIZE,
-            "feat": 32, "depth": TINY_DP_DEPTH, "batch_seed": 0,
-            "models": True, "deterministic": True,
-            "jobs": [("g_step", DP_DRAWS[0]), ("d_step", DP_DRAWS[1])]}
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        ref = _plain_steps(torch, dev, tiny, tiny["jobs"])
-    finally:
-        torch.use_deterministic_algorithms(False)
-    ranks = _launch(torch, 2, tiny, ["cuda:0", "cuda:0"], "gloo")
-    for i, (name, _) in enumerate(tiny["jobs"]):
-        mine, want_job = ranks[0]["jobs"][i], ref[i]
-        for k, v in want_job["metrics"].items():
-            if abs(mine["metrics"][k] - v) > 1e-4 * abs(v) + 1e-9:
-                raise AssertionError(f"11.b {name} {k}: 2 ranks "
-                                     f"{mine['metrics'][k]}, one process {v}")
-        st = want_job["state"]
-        got_g, got_d = copy.deepcopy(st.G), copy.deepcopy(st.D)
-        got_g.load_state_dict(mine["G"])
-        got_d.load_state_dict(mine["D"])
-        summary = hold_state((got_g, got_d)[i], (st.G, st.D)[i].state_dict(),
-                             want_job["lr"][i],
-                             (mine["g_mu"], mine["d_mu"])[i],
-                             want_job["mu"][i], what=f"11.b {name}")
-        hold_state((got_d, got_g)[i], (st.D, st.G)[i].state_dict(),
-                   what=f"11.b {name}, the other model")
-        log(f"11.b two gloo ranks on cuda:0 (tiny, batch 2 per domain, one "
-            f"row per rank), {name} against the one-process step: "
-            f"{len(mine['metrics'])} losses within 1e-4; {summary}; digests "
-            f"equal")
-    del ref
+    tiny_ranks(torch, dev)
 
     # ---- 11.c two gloo ranks on cuda:0, full width ------------------------
     # in f32: in bf16 a mean of near-cancelling D outputs (s_advent_D_r,
@@ -2375,6 +2462,250 @@ def spatial_phase(torch, dev) -> dict:
             f"{json.dumps(line)}")
     log(f"row-sharded phase: {time.perf_counter() - t_phase:.1f} s")
     return launched
+
+
+# ---------------------------------------------------------------------------
+# phase 13: row-sharded training
+SPATIAL_TRAIN_SHARDS = (2, 4)
+SPATIAL_TRAIN_BAR = 1e-4  # the f32 sharded step's losses, relative
+# the f32 sharded step's first moments: their distance to the float64
+# step's in multiples of the unsharded f32 step's (the largest over the
+# leaves above hold_state's noise floor of a leaf's distance over its
+# largest; the unsharded step's taken as at least hold_state's 1e-3)
+SPATIAL_TRAIN_NOISE = 2.0
+SPATIAL_TRAIN_TIMED = 3  # timed bf16 train steps per shard count
+
+
+def _sharded_job(torch, builder, first, batch, i, devices):
+    """Job i (0: g_step, 1: d_step) from a copy of ``first``, over
+    ``devices`` (None: unsharded): (state, losses, the stepped model's
+    first moments)."""
+    import copy
+
+    from climategan_torch.utils.step_check import first_moments
+
+    name, draws = (("g_step", DP_DRAWS[0]), ("d_step", DP_DRAWS[1]))[i]
+    state = builder.state_for(copy.deepcopy(first.G), copy.deepcopy(first.D),
+                              0)
+    state, metrics = getattr(builder, name)(state, batch, draws=draws,
+                                            devices=devices)
+    torch.cuda.synchronize()
+    net, opt = (("G", state.g_opt), ("D", state.d_opt))[i]
+    return (state, {k: float(v) for k, v in metrics.items()},
+            first_moments(getattr(state, net), opt))
+
+
+def _moment_distance(mu, truth, noise_floor):
+    """The first moments ``mu`` against ``truth``'s: the largest over the
+    leaves whose largest is above ``noise_floor`` times the model's of a
+    leaf's largest distance over its largest, that leaf's name, how many
+    of those leaves are beyond 1e-3 and how many there are."""
+    tops = {key: v.abs().max().item() for key, v in truth.items()}
+    floor = noise_floor * max(tops.values())
+    far = [((mu[key].double() - v.double()).abs().max().item() / tops[key],
+            key) for key, v in truth.items() if tops[key] > floor]
+    worst = max(far)
+    return worst[0], worst[1], sum(e > 1e-3 for e, _ in far), len(far)
+
+
+def spatial_train_phase(torch, dev) -> dict:
+    """Phase 13 (see the module docstring): row-sharded training of the
+    default configuration at full width on ["cuda:0"] * k. Returns each
+    kernel's launches per sharded train step by k, the bf16 step's p50 ms
+    by k and masked_blend's largest errors against its plain version over
+    a sharded step's launches."""
+    import statistics
+
+    from climategan_torch import bench_train, kernels
+    from climategan_torch.kernels import masked_blend as masked_blend_mod
+    from climategan_torch.kernels.masked_blend import (
+        masked_blend,
+        masked_blend_plain,
+    )
+    from climategan_torch.train_step import StepBuilder
+    from climategan_torch.utils.opts import load_opts
+    from climategan_torch.utils.step_check import NOISE_FLOOR, hold_state
+
+    t_phase = time.perf_counter()
+    batch = bench_train.synthetic_batch(BATCH, SIZE, 160, dev)
+
+    # ---- 13.a the sharded steps against the unsharded ones ---------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    # float64 first: the state held by hold_state, and the unsharded steps'
+    # first moments are the truth of the f32 ones. In f32 the seed-0
+    # model's full-depth backward is ill-conditioned, two f32 computations
+    # of one step give first moments far beyond hold_state's 1e-3 apart
+    # (ROADMAP C), so there the sharded step is held to the card's own f32
+    # noise: the unsharded f32 step's distance to the float64 step
+    builder = StepBuilder(load_opts(commandline_opts={"train": {
+        "bf16": False}}))
+    truth = {}
+    for dtype in (torch.float64, torch.float32):
+        t0 = time.perf_counter()
+        first = builder.init_state(0, dev)
+        first.G, first.D = first.G.to(dtype), first.D.to(dtype)
+        on = {d: {key: v.to(dtype) if v.is_floating_point() else v
+                  for key, v in b.items()} for d, b in batch.items()}
+        worst, n_losses = {k: (0.0, "") for k in SPATIAL_TRAIN_SHARDS}, 0
+        for i, (net, lr) in enumerate((("G", builder.g_lr),
+                                       ("D", builder.d_lr))):
+            ref, m_ref, mu_ref = _sharded_job(torch, builder, first, on, i,
+                                              None)
+            n_losses += len(m_ref)
+            step_name = ("g_step", "d_step")[i]
+            if dtype == torch.float64:
+                truth[i] = mu_ref
+            else:
+                noise = _moment_distance(mu_ref, truth[i], NOISE_FLOOR)
+                log(f"13.a f32 {step_name}, unsharded: the stepped model's "
+                    f"first moments against the float64 step's: "
+                    f"{noise[1]} {noise[0]:.4f} of its largest, "
+                    f"{noise[2]} of {noise[3]} leaves beyond 1e-3 (the "
+                    f"card's f32 noise)")
+            for k in SPATIAL_TRAIN_SHARDS:
+                st, m, mu = _sharded_job(torch, builder, first, on, i,
+                                         [SPATIAL_DEVICE] * k)
+                what = f"13.a {k} shards {str(dtype)[6:]} {step_name}"
+                if set(m) != set(m_ref):
+                    raise AssertionError(f"{what}: losses {sorted(m)}")
+                for key, v in m_ref.items():
+                    worst[k] = max(worst[k], (abs(m[key] - v)
+                                              / max(abs(v), 1e-12), key))
+                    if abs(m[key] - v) > SPATIAL_TRAIN_BAR * abs(v) + 1e-9:
+                        raise AssertionError(f"{what} {key}: {m[key]} "
+                                             f"against unsharded {v}")
+                if dtype != torch.float64:
+                    far = _moment_distance(mu, truth[i], NOISE_FLOOR)
+                    bar = SPATIAL_TRAIN_NOISE * max(noise[0], 1e-3)
+                    log(f"{what}: the stepped model's first moments against "
+                        f"the float64 step's: {far[1]} {far[0]:.4f} of its "
+                        f"largest, {far[2]} of {far[3]} leaves beyond 1e-3 "
+                        f"(bar {bar:.4f}: {SPATIAL_TRAIN_NOISE:g} x the "
+                        f"unsharded f32 step's)")
+                    if not far[0] <= bar:
+                        raise AssertionError(
+                            f"{what}: first moments {far[0]:.4f} of a "
+                            f"leaf's largest from the float64 step's, more "
+                            f"than {SPATIAL_TRAIN_NOISE:g} x the unsharded "
+                            f"f32 step's {noise[0]:.4f}")
+                    continue
+                other = "D" if net == "G" else "G"
+                summary = hold_state(getattr(st, net),
+                                     getattr(ref, net).state_dict(), lr, mu,
+                                     mu_ref, what=f"{what} {net}")
+                hold_state(getattr(st, other),
+                           getattr(ref, other).state_dict(),
+                           what=f"{what}, the other model {other}")
+                log(f"{what} against the unsharded step from the same "
+                    f"state: {summary}")
+                del st
+            del ref
+        for k in SPATIAL_TRAIN_SHARDS:
+            log(f"13.a {k} shards {str(dtype)[6:]} (640^2, {BATCH} per "
+                f"domain): "
+                f"{n_losses} losses of g_step and d_step within "
+                f"{worst[k][0]:.3e} relative of the unsharded steps' "
+                f"({worst[k][1]}; bar {SPATIAL_TRAIN_BAR})" + (
+                    "; statistics and u/v within 1e-5"
+                    if dtype == torch.float64 else ""))
+        log(f"13.a {str(dtype)[6:]}: {time.perf_counter() - t0:.1f} s, "
+            f"peak {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+        torch.cuda.reset_peak_memory_stats(dev)
+        del first, on
+        torch.cuda.empty_cache()
+    del builder, truth
+
+    # ---- 13.b bf16: step ms, ranges, launches, peak -----------------------
+    t_b = time.perf_counter()
+    builder = StepBuilder(load_opts())
+    state = builder.init_state(0, dev)
+    launched, step_ms = {}, {}
+
+    def step(devices):
+        def fn():
+            nonlocal state
+            state, _ = builder.train_step(state, batch, devices=devices)
+        return fn
+
+    # 13.c's masked_blend launches are recorded in the last k's first step
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return masked_blend(*args)
+
+    for k in (1, *SPATIAL_TRAIN_SHARDS):
+        t0 = time.perf_counter()
+        devices = None if k == 1 else [SPATIAL_DEVICE] * k
+        if k == SPATIAL_TRAIN_SHARDS[-1]:
+            masked_blend_mod.masked_blend = record
+        try:
+            step(devices)()
+        finally:
+            masked_blend_mod.masked_blend = masked_blend
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(SPATIAL_TRAIN_TIMED):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            step(devices)()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launched[k] = dict(kernels.launches)
+        step_ms[k] = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        expect = {n: (2 * k if n == "masked_blend" else 0)
+                  for n in MAIN_PATH_LAUNCHES}
+        if launched[k] != expect:
+            raise AssertionError(f"13.b {k} shards: a train step launched "
+                                 f"{launched[k]}, expected {expect}")
+        line = (f"13.b bf16 train_step {k} shard(s) (640^2, {BATCH} per "
+                f"domain): p50 {step_ms[k]:.2f} ms of {SPATIAL_TRAIN_TIMED} "
+                f"({', '.join(f'{t:.2f}' for t in times)}; the first step "
+                f"{first_ms:.2f}), peak "
+                f"{peak:.2f} GiB, launches per step {launched[k]}")
+        if k == SPATIAL_TRAIN_SHARDS[0]:
+            # one profiled step: reading a trace of the k = 4 step's ~10^5
+            # events back took about a minute
+            host, in_dev, wall, busy = _spatial_ranges(torch, step(devices))
+            line += (f"; under the profiler {wall:.2f} ms, exchanges and "
+                     f"collectives {host:.2f} ms of host time "
+                     f"({100 * host / wall:.1f}%) and {in_dev:.3f} ms of "
+                     f"device time ({100 * in_dev / busy:.1f}% of "
+                     f"{busy:.2f} busy ms)")
+        log(line)
+    log(f"13.b: {time.perf_counter() - t_b:.1f} s with the state's build")
+
+    # ---- 13.c every masked_blend launch of one sharded step ---------------
+    k = SPATIAL_TRAIN_SHARDS[-1]
+    if len(calls) != 2 * k:
+        raise AssertionError(f"13.c recorded {len(calls)} masked_blend "
+                             f"launches, expected {2 * k}")
+    e32 = e16 = 0.0
+    for xb, fb, mb in calls:
+        a32 = (xb.float(), fb.float(), mb.float())
+        e = (masked_blend(*a32) - masked_blend_plain(*a32)).abs().max().item()
+        if not e <= 1e-6:
+            raise AssertionError(f"13.c masked_blend f32 max error {e}")
+        e32 = max(e32, e)
+        got16, want16 = masked_blend(xb, fb, mb).float(), \
+            masked_blend_plain(*a32)
+        ulp = 2.0 ** (torch.floor(torch.log2(want16.abs().max())).item() - 7)
+        e = (got16 - want16).abs().max().item()
+        if not e <= ulp:
+            raise AssertionError(f"13.c masked_blend bf16 error {e} > {ulp}")
+        e16 = max(e16, e)
+    log(f"13.c the {k}-shard bf16 step's {len(calls)} masked_blend launches "
+        f"(shards {sorted({tuple(c[0].shape) for c in calls})}) against "
+        f"masked_blend_plain on the same inputs: f32 max error {e32:.3e}, "
+        f"bf16 {e16:.3e} (within one ulp)")
+    del state, builder, calls
+    torch.cuda.empty_cache()
+    log(f"row-sharded training phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {k: launched[k] for k in SPATIAL_TRAIN_SHARDS},
+            "step_ms": step_ms, "masked_blend_err": (e32, e16)}
 
 
 def main() -> int:
@@ -2767,6 +3098,8 @@ def run(torch) -> int:
                                       Path(data_dir.name) / "run")
     data_dir.cleanup()
     spatial_launches = spatial_phase(torch, dev)
+    with torch.inference_mode(False), torch.enable_grad():
+        spatial_train = spatial_train_phase(torch, dev)
     for r in rows:
         r["train_launches"] = train_launches[r["name"]]
         r["ddp_train_launches"] = ddp_launches[r["name"]]
@@ -2775,6 +3108,9 @@ def run(torch) -> int:
             path: n[r["name"]] for path, n in configs["paths"].items()}}
         r["spatial_launches"] = {f"{k} shards": n[r["name"]]
                                  for k, n in spatial_launches.items()}
+        r["spatial_train_launches"] = {
+            f"{k} shards": n[r["name"]]
+            for k, n in spatial_train["launches"].items()}
         if r["name"] == "spade_cond":
             r["spade_masker"] = configs["spade_cond"]
         r["step_option_launches"] = {

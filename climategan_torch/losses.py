@@ -11,6 +11,12 @@ its reductions and its quirks:
     as the reference's batch-wide Sobel kernels do;
   * ``feat_match_loss`` and ``vgg_loss`` detach the real side.
 
+Each takes row-sharded maps (``parallel/spatial.Rows``) as it takes
+tensors, with the same value and gradient as over the whole map: means
+over the global pixel count, the terms that read across rows (``tv_loss``,
+``sigm_loss``'s Sobel windows) with a halo from the next shard, the
+medians, maxima and variance means over every shard.
+
 Inside a data-parallel step (``distributed.sharded_batch()`` over several
 ranks, each holding its rows of the global batch) every function returns
 this rank's **share** of the loss of the global batch, so that the ranks'
@@ -29,17 +35,18 @@ a PatchGAN's layer outputs.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional
+from typing import Callable, List
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from climategan_torch.ops.interpolate import resize
-from climategan_torch.parallel import distributed
+from climategan_torch.parallel import distributed, spatial
+from climategan_torch.parallel.spatial import Rows, each
 
 # --------------------------------------------------------------------------
-# reductions over the batch of a data-parallel step
+# reductions over the batch of a data-parallel step and over row shards
 # --------------------------------------------------------------------------
 
 
@@ -50,39 +57,87 @@ def _share(mean: torch.Tensor) -> torch.Tensor:
     return mean if w == 1 else mean / w
 
 
-def _global_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of ``x`` over the global batch, on every rank, with its
-    gradient."""
+def _sum(x) -> torch.Tensor:
+    """The sum of all values of a tensor, or of a row-sharded map (on its
+    first shard's device, with its gradient to every shard)."""
+    if isinstance(x, Rows):
+        return spatial.total([p.sum() for p in x.parts], x.devices)
+    return torch.sum(x)
+
+
+def _numel(x) -> int:
+    if isinstance(x, Rows):
+        return sum(p.numel() for p in x.parts)
+    return x.numel()
+
+
+def _mean(x) -> torch.Tensor:
+    """The mean of all values of a tensor or a row-sharded map."""
+    if isinstance(x, Rows):
+        return _sum(x) / _numel(x)
+    return torch.mean(x)
+
+
+def _shape(x):
+    """(N, C, H, W) of a tensor or of the whole of a row-sharded map."""
+    if isinstance(x, Rows):
+        n, c, _, w = x.parts[0].shape
+        return n, c, x.h, w
+    return tuple(x.shape)
+
+
+def _whole(x) -> torch.Tensor:
+    """A row-sharded map gathered on its first shard's device, with its
+    gradient to every shard; a tensor as it is."""
+    return x.gather(x.devices[0]) if isinstance(x, Rows) else x
+
+
+def _global_mean(x) -> torch.Tensor:
+    """The mean of ``x`` over the global batch (and all rows), on every
+    rank, with its gradient."""
     w = distributed.batch_world()
     if w == 1:
-        return torch.mean(x)
-    return distributed.all_reduce_sum_grad(torch.sum(x)) / (x.numel() * w)
+        return _mean(x)
+    return distributed.all_reduce_sum_grad(_sum(x)) / (_numel(x) * w)
 
 # --------------------------------------------------------------------------
 # elementary criteria
 # --------------------------------------------------------------------------
 
 
-def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return _share(torch.mean((pred - target) ** 2))
+def mse_loss(pred, target) -> torch.Tensor:
+    return _share(_mean(each(lambda p, t: (p - t) ** 2, pred, target)))
 
 
-def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return _share(torch.mean(torch.abs(pred - target)))
+def l1_loss(pred, target) -> torch.Tensor:
+    return _share(_mean(each(lambda p, t: torch.abs(p - t), pred, target)))
 
 
-def bce_with_logits(logits: torch.Tensor, target) -> torch.Tensor:
+def bce_with_logits(logits, target) -> torch.Tensor:
     """BCEWithLogitsLoss, mean reduction, in the stable form."""
-    loss = (torch.clamp_min(logits, 0) - logits * target
-            + torch.log1p(torch.exp(-torch.abs(logits))))
-    return _share(torch.mean(loss))
+    loss = each(lambda x, t: (torch.clamp_min(x, 0) - x * t
+                              + torch.log1p(torch.exp(-torch.abs(x)))),
+                logits, target)
+    return _share(_mean(loss))
 
 
-def cross_entropy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits, target) -> torch.Tensor:
     """CrossEntropyLoss over NCHW logits and NHW integer targets."""
-    logp = F.log_softmax(logits, dim=1)
-    picked = torch.gather(logp, 1, target[:, None].long())
-    return -_share(torch.mean(picked))
+    picked = each(lambda x, t: torch.gather(F.log_softmax(x, dim=1), 1,
+                                            t[:, None].long()),
+                  logits, target)
+    return -_share(_mean(picked))
+
+
+def _full_like(p, value: float):
+    return each(lambda t: torch.full_like(t, value), p)
+
+
+def upcast(p):
+    """A tensor or a row-sharded map in f32, or kept in float64: the
+    losses' compute dtype."""
+    return each(lambda t: t.to(torch.promote_types(t.dtype, torch.float32)),
+                p)
 
 
 # --------------------------------------------------------------------------
@@ -90,7 +145,7 @@ def cross_entropy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def final_preds(pred) -> List[torch.Tensor]:
+def final_preds(pred) -> list:
     """The last layer's output of each scale of a discriminator result."""
     if isinstance(pred, (list, tuple)):
         return [p[-1] if isinstance(p, (list, tuple)) else p for p in pred]
@@ -112,8 +167,8 @@ def gan_loss(pred, target_is_real: bool, soft: float = 0.0,
     t = real if target_is_real else fake
     total = 0.0
     for p in preds:
-        pf = p.float()
-        tgt = torch.full_like(pf, float(t))
+        pf = upcast(p)
+        tgt = _full_like(pf, float(t))
         total = total + (mse_loss(pf, tgt) if use_lsgan
                          else bce_with_logits(pf, tgt))
     return total / len(preds)
@@ -124,18 +179,15 @@ def hinge_loss(pred, target_is_real: bool,
     """SPADE's hinge loss, averaged over the scales."""
     total = 0.0
     for p in final_preds(pred):
-        p = p.float()
+        p = upcast(p)
         if for_discriminator:
-            if target_is_real:
-                total = total - _share(torch.mean(torch.clamp_max(p - 1.0,
-                                                                  0.0)))
-            else:
-                total = total - _share(torch.mean(torch.clamp_max(-p - 1.0,
-                                                                  0.0)))
+            sign = 1.0 if target_is_real else -1.0
+            total = total - _share(_mean(each(
+                lambda t: torch.clamp_max(sign * t - 1.0, 0.0), p)))
         else:
             if not target_is_real:
                 raise ValueError("the generator's hinge loss aims for real")
-            total = total - _share(torch.mean(p))
+            total = total - _share(_mean(p))
     return total / len(final_preds(pred))
 
 
@@ -147,8 +199,8 @@ def feat_match_loss(pred_real, pred_fake) -> torch.Tensor:
     total = 0.0
     for i in range(num_d):
         for j in range(len(pred_fake[i]) - 1):
-            real = pred_real[i][j].detach().float()
-            total = total + l1_loss(pred_fake[i][j].float(), real) / num_d
+            real = upcast(each(torch.Tensor.detach, pred_real[i][j]))
+            total = total + l1_loss(upcast(pred_fake[i][j]), real) / num_d
     return total
 
 
@@ -157,40 +209,61 @@ def feat_match_loss(pred_real, pred_fake) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def tv_loss(x: torch.Tensor) -> torch.Tensor:
-    """Total variation of NCHW ``x``, divided by the (global) batch
-    size."""
-    n, c, h, w = x.shape
+def _row_diffs_sum(x: Rows) -> torch.Tensor:
+    """The sum of the squared differences of adjacent rows of a
+    row-sharded map: each shard takes its rows' differences with the next
+    row, its neighbour's first across the boundary (a 1-row halo)."""
+    parts = []
+    for i, dev in enumerate(x.devices):
+        lo, hi = x.bounds(i)
+        if hi - lo and lo < x.h - 1:
+            win = x.fetch(lo, min(hi + 1, x.h), dev)
+            parts.append(torch.sum((win[:, :, 1:] - win[:, :, :-1]) ** 2))
+    return spatial.total(parts, x.devices)
+
+
+def tv_loss(x) -> torch.Tensor:
+    """Total variation of NCHW ``x`` (a tensor or a row-sharded map),
+    divided by the (global) batch size."""
+    n, c, h, w = _shape(x)
     n = n * distributed.batch_world()
     count_h = (h - 1) * w * c
     count_w = h * (w - 1) * c
-    h_tv = torch.sum((x[:, :, 1:, :] - x[:, :, :-1, :]) ** 2)
-    w_tv = torch.sum((x[:, :, :, 1:] - x[:, :, :, :-1]) ** 2)
+    if isinstance(x, Rows):
+        h_tv = _row_diffs_sum(x)
+    else:
+        h_tv = torch.sum((x[:, :, 1:, :] - x[:, :, :-1, :]) ** 2)
+    w_tv = _sum(each(lambda t: (t[:, :, :, 1:] - t[:, :, :, :-1]) ** 2, x))
     return 2.0 * (h_tv / count_h + w_tv / count_w) / n
 
 
-def entropy_map(prob: torch.Tensor) -> torch.Tensor:
+def entropy_map(prob):
     """Weighted self-information of NCHW probabilities."""
-    c = prob.shape[1]
-    return -prob * torch.log2(prob + 1e-30) / math.log2(c)
+    c = _shape(prob)[1]
+    return each(lambda p: -p * torch.log2(p + 1e-30) / math.log2(c), prob)
 
 
-def minent_loss(prob: torch.Tensor, version: int = 1,
+def minent_loss(prob, version: int = 1,
                 lambda_var: float = 0.1) -> torch.Tensor:
     """Entropy minimization over NCHW probabilities; version 2 adds the
-    entropy map's variance."""
-    n, c, h, w = prob.shape
+    entropy map's variance (about the mean over the whole global batch)."""
+    n, c, h, w = _shape(prob)
     n = n * distributed.batch_world()
     ent = entropy_map(prob)
     if version == 1:
-        return torch.sum(ent) / (n * h * w)
-    demean = ent - distributed.all_reduce_sum_grad(torch.sum(ent)) / (n * h * w)
-    return torch.sum(ent + lambda_var * demean * demean) / (n * h * w)
+        return _sum(ent) / (n * h * w)
+    mean = distributed.all_reduce_sum_grad(_sum(ent)) / (n * h * w)
+    def term(e):
+        demean = e - mean.to(e.device)
+        return e + lambda_var * demean * demean
+
+    return _sum(each(term, ent)) / (n * h * w)
 
 
-def simse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    d = pred - target
-    return _share(torch.mean(d * d)) - _share(_global_mean(d) ** 2)
+def simse_loss(pred, target) -> torch.Tensor:
+    d = each(torch.sub, pred, target)
+    return _share(_mean(each(lambda t: t * t, d))) \
+        - _share(_global_mean(d) ** 2)
 
 
 _SOBEL_X = ((1.0, 0.0, -1.0), (2.0, 0.0, -2.0), (1.0, 0.0, -1.0))
@@ -203,6 +276,24 @@ def _sobel(x: torch.Tensor, k) -> torch.Tensor:
     return F.conv2d(x, kern)
 
 
+def _sobel_sum(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(torch.abs(_sobel(x, _SOBEL_X))
+                     + torch.abs(_sobel(x, _SOBEL_Y)))
+
+
+def _sobel_sum_rows(x: Rows) -> torch.Tensor:
+    """``_sobel_sum`` of the whole row-sharded map: each shard takes the
+    valid outputs whose window starts on its rows, on its rows and the
+    next shards' first two (a 2-row halo)."""
+    parts = []
+    for i, dev in enumerate(x.devices):
+        lo, hi = x.bounds(i)
+        top = min(hi, x.h - 2)  # the last valid output row + 1
+        if top > lo:
+            parts.append(_sobel_sum(x.fetch(lo, top + 2, dev)))
+    return spatial.total(parts, x.devices)
+
+
 def median(x: torch.Tensor) -> torch.Tensor:
     """The median of all values, as numpy and JAX take it: the mean of the
     two middle values when the count is even."""
@@ -211,71 +302,99 @@ def median(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * (v[(n - 1) // 2] + v[n // 2])
 
 
-def sigm_loss(pred: torch.Tensor, target: torch.Tensor, gmweight: float = 0.5,
+def sigm_loss(pred, target, gmweight: float = 0.5,
               scale: int = 4) -> torch.Tensor:
     """MiDaS scale-invariant loss plus the Sobel gradient-matching term over
-    ``scale`` nearest-downsampled maps; pred and target (N, 1, H, W)."""
-    t_pred = median(distributed.gather_batch(pred))
-    t_targ = median(distributed.gather_batch(target))
-    s_pred = _global_mean(torch.abs(pred - t_pred))
-    s_targ = _global_mean(torch.abs(target - t_targ))
-    r = (pred - t_pred) / s_pred - (target - t_targ) / s_targ
+    ``scale`` nearest-downsampled maps; pred and target (N, 1, H, W)
+    tensors or row-sharded maps (the medians of the whole maps, gathered;
+    the downsampled maps an exact row gather; the Sobel windows across the
+    shards' boundaries)."""
+    t_pred = median(distributed.gather_batch(_whole(pred)))
+    t_targ = median(distributed.gather_batch(_whole(target)))
 
-    num_pix = pred.shape[2] * pred.shape[3]
+    def dev(v, t):
+        return v.to(t.device)
+
+    s_pred = _global_mean(each(lambda p: torch.abs(p - dev(t_pred, p)), pred))
+    s_targ = _global_mean(each(lambda t: torch.abs(t - dev(t_targ, t)),
+                               target))
+    r = each(lambda p, t: ((p - dev(t_pred, p)) / dev(s_pred, p)
+                           - (t - dev(t_targ, t)) / dev(s_targ, t)),
+             pred, target)
+
+    n, _, h0, w0 = _shape(pred)
+    num_pix = h0 * w0
     gm = 0.0
     rk = r
     for k in range(scale):
+        h, w = h0, w0
         if k > 0:
             # F.interpolate(scale_factor=1/2**k) from the base map
-            h = int(r.shape[2] * (1 / 2 ** k))
-            w = int(r.shape[3] * (1 / 2 ** k))
-            rk = resize(r, (h, w), "nearest")
-        if min(rk.shape[2:]) < 3:
+            h, w = int(h0 * (1 / 2 ** k)), int(w0 * (1 / 2 ** k))
+            rk = (spatial.resize(r, (h, w), "nearest")
+                  if isinstance(r, Rows) else resize(r, (h, w), "nearest"))
+        if min(h, w) < 3:
             continue  # a valid 3x3 conv of a smaller map is empty: sums to 0
-        gm = gm + torch.sum(torch.abs(_sobel(rk, _SOBEL_X))
-                            + torch.abs(_sobel(rk, _SOBEL_Y)))
+        gm = gm + (_sobel_sum_rows(rk) if isinstance(rk, Rows)
+                   else _sobel_sum(rk))
     # the reference's Sobel kernels have batch_size identical output
     # channels, so the gradient term counts batch_size times (the global
     # batch's: the sums above are this rank's share)
-    gm = gm * (pred.shape[0] * distributed.batch_world())
-    return 0.5 / num_pix * torch.sum(torch.abs(r)) + gmweight / num_pix * gm
+    gm = gm * (n * distributed.batch_world())
+    return (0.5 / num_pix * _sum(each(torch.abs, r))
+            + gmweight / num_pix * gm)
 
 
-def dada_depth_loss(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+def _max(x) -> torch.Tensor:
+    """The largest value of a tensor or a row-sharded map (its gradient to
+    the shard that holds it)."""
+    if isinstance(x, Rows):
+        return spatial.all_reduce([p.max() if p.numel() else None
+                                   for p in x.parts], "max",
+                                  x.devices[:1])[0]
+    return torch.max(x)
+
+
+def dada_depth_loss(pred, label) -> torch.Tensor:
     """berHu (reverse Huber) loss; the threshold is 0.2 of the global
-    batch's largest difference (its gradient reaches the rank that holds
-    it)."""
-    adiff = torch.abs(pred - label)
-    largest = torch.max(adiff)
+    batch's largest difference (its gradient reaches the rank and the
+    shard that hold it)."""
+    adiff = each(lambda p, t: torch.abs(p - t), pred, label)
+    largest = _max(adiff)
     if distributed.batch_world() > 1:
         largest = torch.max(distributed.gather_batch(largest.reshape(1)))
     batch_max = 0.2 * largest
-    t1 = torch.where(adiff <= batch_max, adiff, torch.zeros_like(adiff))
-    t2 = torch.where(
-        adiff > batch_max,
-        (adiff * adiff + batch_max * batch_max) / (2.0 * batch_max + 1e-12),
-        torch.zeros_like(adiff))
-    return (torch.sum(t1) + torch.sum(t2)) / (pred.numel()
-                                              * distributed.batch_world())
+
+    def t1(a):
+        return torch.where(a <= batch_max.to(a.device), a,
+                           torch.zeros_like(a))
+
+    def t2(a):
+        bm = batch_max.to(a.device)
+        return torch.where(a > bm, (a * a + bm * bm) / (2.0 * bm + 1e-12),
+                           torch.zeros_like(a))
+
+    return (_sum(each(t1, adiff)) + _sum(each(t2, adiff))) / (
+        _numel(pred) * distributed.batch_world())
 
 
-def context_loss(input: torch.Tensor, target: torch.Tensor,
-                 mask: torch.Tensor) -> torch.Tensor:
+def context_loss(input, target, mask) -> torch.Tensor:
     """L1 outside the mask."""
-    return _share(torch.mean(torch.abs((input - target) * (1.0 - mask))))
+    return _share(_mean(each(lambda i, t, m: torch.abs((i - t) * (1.0 - m)),
+                             input, target, mask)))
 
 
-def reconstruction_loss(input: torch.Tensor, target: torch.Tensor,
-                        mask: torch.Tensor) -> torch.Tensor:
+def reconstruction_loss(input, target, mask) -> torch.Tensor:
     """L1 inside the mask."""
-    return _share(torch.mean(torch.abs((input - target) * mask)))
+    return _share(_mean(each(lambda i, t, m: torch.abs((i - t) * m),
+                             input, target, mask)))
 
 
-def ground_intersection_loss(pred: torch.Tensor,
-                             pseudo_ground: torch.Tensor) -> torch.Tensor:
+def ground_intersection_loss(pred, pseudo_ground) -> torch.Tensor:
     """The share of ground pixels missing from the flood mask (no
     gradient: a comparison)."""
-    return _share(torch.mean(((pseudo_ground - pred) > 0.5).float()))
+    return _share(_mean(each(lambda p, g: ((g - p) > 0.5).to(p.dtype), pred,
+                             pseudo_ground)))
 
 
 # --------------------------------------------------------------------------
@@ -283,25 +402,25 @@ def ground_intersection_loss(pred: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
-def custom_bce(prediction: torch.Tensor, target: float) -> torch.Tensor:
+def custom_bce(prediction, target: float) -> torch.Tensor:
     """BCE-with-logits against a constant domain label."""
-    return bce_with_logits(prediction, torch.full_like(prediction, target))
+    return bce_with_logits(prediction, _full_like(prediction, target))
 
 
-def wgan_domain_loss(x: torch.Tensor, y: float) -> torch.Tensor:
+def wgan_domain_loss(x, y: float) -> torch.Tensor:
     """-mean(y x + (1 - y)(1 - x))."""
-    return -_share(torch.mean(y * x + (1.0 - y) * (1.0 - x)))
+    return -_share(_mean(each(lambda t: y * t + (1.0 - y) * (1.0 - t), x)))
 
 
-def advent_loss(prob: torch.Tensor, target: float,
-                disc_fn: Callable[[torch.Tensor], torch.Tensor],
+def advent_loss(prob, target: float, disc_fn: Callable,
                 gan_type: str = "WGAN_norm",
-                depth_preds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                depth_preds=None) -> torch.Tensor:
     """ADVENT: the entropy map (times the depth under DADA) through the
-    domain discriminator ``disc_fn``, then the domain loss."""
+    domain discriminator ``disc_fn``, then the domain loss; on tensors or
+    row-sharded maps."""
     d_in = entropy_map(prob)
     if depth_preds is not None:
-        d_in = d_in * depth_preds
+        d_in = each(torch.mul, d_in, depth_preds)
     d_out = disc_fn(d_in)
     if gan_type == "GAN":
         return custom_bce(d_out, target)

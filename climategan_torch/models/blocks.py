@@ -56,7 +56,7 @@ class UpsampleNearest(nn.Module):
     def forward(self, x, update_sn: bool = False):
         return upsample_nearest(x, 2)
 
-    def forward_rows(self, x: Rows) -> Rows:
+    def forward_rows(self, x: Rows, update_sn: bool = False) -> Rows:
         return spatial.upsample_nearest(x, 2)
 
 
@@ -68,10 +68,11 @@ def run_layers(layers: nn.Sequential, x: torch.Tensor,
     return x
 
 
-def run_layers_rows(layers: nn.Sequential, x: Rows) -> Rows:
-    """``run_layers`` on a row-sharded map (eval mode)."""
+def run_layers_rows(layers: nn.Sequential, x: Rows,
+                    update_sn: bool = False) -> Rows:
+    """``run_layers`` on a row-sharded map."""
     for layer in layers:
-        x = layer.forward_rows(x)
+        x = layer.forward_rows(x, update_sn)
     return x
 
 
@@ -117,13 +118,14 @@ class Conv2dBlock(nn.Module):
             x = instance_norm(x)
         return activation(x, self.activation)
 
-    def forward_rows(self, x: Rows) -> Rows:
-        """The eval forward on a row-sharded map: the pad is applied where a
+    def forward_rows(self, x: Rows, update_sn: bool = False) -> Rows:
+        """The forward on a row-sharded map: the pad is applied where a
         window crosses the image's top or bottom."""
         mode = "zero" if self.pad_mode == "constant" else self.pad_mode
-        x = spatial.conv2d(x, self.conv, pad=self.padding, mode=mode)
+        x = spatial.conv2d(x, self.conv, pad=self.padding, mode=mode,
+                           update_sn=update_sn)
         if self.norm is not None:
-            x = spatial.apply(x, self.norm)
+            x = self.norm.forward_rows(x)
         elif self.instance:
             x = spatial.instance_norm(x)
         return x.map(lambda p: activation(p, self.activation))
@@ -142,8 +144,8 @@ class ResBlock(nn.Module):
     def forward(self, x, update_sn: bool = False):
         return x + run_layers(self.model, x, update_sn)
 
-    def forward_rows(self, x: Rows) -> Rows:
-        return x.zip(run_layers_rows(self.model, x), torch.add)
+    def forward_rows(self, x: Rows, update_sn: bool = False) -> Rows:
+        return x.zip(run_layers_rows(self.model, x, update_sn), torch.add)
 
 
 class ResBlocks(nn.Module):
@@ -156,8 +158,8 @@ class ResBlocks(nn.Module):
     def forward(self, x, update_sn: bool = False):
         return run_layers(self.model, x, update_sn)
 
-    def forward_rows(self, x: Rows) -> Rows:
-        return run_layers_rows(self.model, x)
+    def forward_rows(self, x: Rows, update_sn: bool = False) -> Rows:
+        return run_layers_rows(self.model, x, update_sn)
 
 
 class BaseDecoder(nn.Module):
@@ -214,25 +216,27 @@ class BaseDecoder(nn.Module):
                                       update_sn)
         return run_layers(self.model, z, update_sn)
 
-    def forward_rows(self, z, z_depth: Optional[Rows] = None) -> Rows:
-        """``forward`` (eval) on row-sharded maps: ``z`` a ``Rows`` or
-        (high, low) ``Rows``."""
+    def forward_rows(self, z, z_depth: Optional[Rows] = None,
+                     update_sn: bool = False) -> Rows:
+        """``forward`` on row-sharded maps: ``z`` a ``Rows`` or (high, low)
+        ``Rows``."""
         low_level_feat = None
         if isinstance(z, (list, tuple)):
             if not self.use_low_level:
                 z = z[0]
             else:
                 z, low = z
-                low = self.low_level_conv.forward_rows(low)
+                low = self.low_level_conv.forward_rows(low, update_sn)
                 low_level_feat = spatial.resize(low, (z.h, z.w), "bilinear",
                                                 align_corners=False)
         if z_depth is not None and self.use_dada:
             z = z.zip(z_depth, torch.mul)
         if self.proj_conv is not None:
-            z = self.proj_conv.forward_rows(z)
+            z = self.proj_conv.forward_rows(z, update_sn)
         if low_level_feat is not None:
-            z = self.merge_feats_conv.forward_rows(low_level_feat.cat(z))
-        return run_layers_rows(self.model, z)
+            z = self.merge_feats_conv.forward_rows(low_level_feat.cat(z),
+                                                   update_sn)
+        return run_layers_rows(self.model, z, update_sn)
 
 
 class SPADEResnetBlock(nn.Module):
@@ -317,14 +321,18 @@ class SPADEResnetBlock(nn.Module):
         out = x_s + dx
         return lrelu(out) if self.last_activation == "lrelu" else out
 
-    def forward_rows(self, x: Rows, cond: Rows) -> Rows:
-        """The eval forward on a row-sharded ``x`` with instance-norm SPADEs;
-        ``cond`` the row-sharded conditioning map at any size. Each shard's
-        ``spade_cond`` launches run on the conditioning rows of its own
-        rows with a 2-row halo (``norms.spade_windows``)."""
-        if self.training or self.norm_0.param_free_norm is not None:
-            raise ValueError("row-sharded SPADE blocks run in eval mode with "
-                             "instance norms")
+    def forward_rows(self, x: Rows, cond: Rows,
+                     update_sn: bool = False) -> Rows:
+        """The forward on a row-sharded ``x`` with instance-norm SPADEs;
+        ``cond`` the row-sharded conditioning map at any size. In eval mode
+        each shard's ``spade_cond`` launches run on the conditioning rows
+        of its own rows with a 2-row halo (``norms.spade_windows``); in
+        train mode each SPADE's plain convs run on the conditioning rows
+        (``SPADE.forward_train_rows``)."""
+        if self.norm_0.param_free_norm is not None:
+            raise ValueError("row-sharded SPADE blocks take instance norms")
+        if self.training:
+            return self._train_rows(x, cond, update_sn)
         dtype = x.dtype
         seg = spatial.Resized(cond, (x.h, x.w), "nearest")
         wins = spade_windows(x, seg)
@@ -344,6 +352,25 @@ class SPADEResnetBlock(nn.Module):
             self.norm_1, d).current_pack(dtype))
         dx = SPADE.modulate_rows(spatial.instance_norm(dx), gbs, 0)
         dx = spatial.conv2d(dx.map(lrelu), self.conv_1)
+        out = x_s.zip(dx, torch.add)
+        return out.map(lrelu) if self.last_activation == "lrelu" else out
+
+    def _train_rows(self, x: Rows, cond: Rows, update_sn: bool) -> Rows:
+        """``forward`` in train mode on row-sharded maps, u/v stored in the
+        same order (conv_s, conv_0, conv_1)."""
+        seg = spatial.Resized(cond, (x.h, x.w), "nearest").rows(x.devices)
+        seg = seg.map(lambda p: p.to(x.dtype))
+        normed = spatial.instance_norm(x)
+        if self.learned_shortcut:
+            x_s = spatial.conv2d(
+                self.norm_s.forward_train_rows(x, seg, normed), self.conv_s,
+                update_sn=update_sn)
+        else:
+            x_s = x
+        dx = self.norm_0.forward_train_rows(x, seg, normed)
+        dx = spatial.conv2d(dx.map(lrelu), self.conv_0, update_sn=update_sn)
+        dx = self.norm_1.forward_train_rows(dx, seg).map(lrelu)
+        dx = spatial.conv2d(dx, self.conv_1, update_sn=update_sn)
         out = x_s.zip(dx, torch.add)
         return out.map(lrelu) if self.last_activation == "lrelu" else out
 

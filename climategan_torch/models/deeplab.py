@@ -35,7 +35,7 @@ class ConvBN(nn.Module):
         return self.bn(self.conv(x))
 
     def forward_rows(self, x: Rows) -> Rows:
-        return spatial.apply(spatial.conv2d(x, self.conv), self.bn)
+        return self.bn.forward_rows(spatial.conv2d(x, self.conv))
 
 
 class ASPP(nn.Module):
@@ -111,7 +111,7 @@ class DeepLabV3Decoder(nn.Module):
         return resize(s, self.target_size, "bilinear", align_corners=True)
 
     def forward_rows(self, z, z_depth: Optional[Rows] = None) -> Rows:
-        """The eval forward (ASPP decoder) on row-sharded maps."""
+        """The forward (ASPP decoder) on row-sharded maps."""
         z_high, z_low = z
         if z_depth is not None and self.use_dada:
             z_high = z_high.zip(z_depth, torch.mul)

@@ -65,19 +65,22 @@ class DADADepthDecoder(nn.Module):
                            "nearest")
         return depth, z_depth
 
-    def forward_rows(self, z):
-        """The eval forward on row-sharded maps: (depth, z_depth) as
-        ``Rows``; the bicubic-384 -> nearest chain computes each shard's
-        rows from the rows they read."""
+    def forward_rows(self, z, update_sn: bool = False):
+        """The forward on row-sharded maps: (depth, z_depth) as ``Rows``;
+        the bicubic-384 -> nearest chain computes each shard's rows from
+        the rows they read (a product with the rows of the interpolation
+        operator, which the backward runs transposed)."""
         if isinstance(z, (list, tuple)):
             z = z[0]
         y = z
         for block in (self.enc4_1, self.enc4_2, self.enc4_3):
-            y = block.forward_rows(y)
-        z_depth = None if self.dec4 is None else self.dec4.forward_rows(y)
+            y = block.forward_rows(y, update_sn)
+        z_depth = (None if self.dec4 is None
+                   else self.dec4.forward_rows(y, update_sn))
         if self.upsample is not None:
             up, conv, out = self.upsample
-            y = spatial.conv2d(conv.forward_rows(up.forward_rows(y)), out)
+            y = spatial.conv2d(conv.forward_rows(up.forward_rows(y),
+                                                 update_sn), out)
         depth = y.map(lambda p: torch.mean(p, dim=1, keepdim=True))
         if depth.w != self.target_size:
             t = self.target_size

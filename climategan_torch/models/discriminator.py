@@ -9,6 +9,9 @@
   * ``OmniDiscriminator``: ``p`` (the painter's), ``m_advent`` and
     ``s_advent``.
 
+Each takes a row-sharded map (``parallel/spatial.Rows``) as it takes a
+tensor and returns its outputs as ``Rows`` (``forward_rows``; the
+multiscale pyramid's pool through ``spatial.avg_pool2d``).
 Module names follow the JAX ones (``p.discriminator_{i}.conv{k}``,
 ``p_global``/``p_local`` in its place, ``m_advent.conv{i}``), with the port's spectral-conv keys
 (``.module.weight_bar`` etc.). Every spectral conv takes ``update_sn`` as
@@ -24,6 +27,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from climategan_torch.models.norms import SNConv, init_weights, instance_norm
+from climategan_torch.parallel import spatial
+from climategan_torch.parallel.spatial import Rows
 
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -49,7 +54,9 @@ class NLayerDiscriminator(nn.Module):
             cin = w
         self.conv_out = SNConv(cin, 1, 4, 1, padding=1, spectral=True)
 
-    def forward(self, x: torch.Tensor, update_sn: bool = False):
+    def forward(self, x, update_sn: bool = False):
+        if isinstance(x, Rows):
+            return self.forward_rows(x, update_sn)
         feats = []
         y = x
         for k in range(self.n_layers + 1):
@@ -64,9 +71,30 @@ class NLayerDiscriminator(nn.Module):
         feats.append(y)
         return feats if self.get_intermediate_features else feats[-1]
 
+    def forward_rows(self, x: Rows, update_sn: bool = False):
+        """``forward`` on a row-sharded map: every layer's output as
+        ``Rows`` (the instance norms over all rows)."""
+        feats = []
+        y = x
+        for k in range(self.n_layers + 1):
+            y = spatial.conv2d(y, getattr(self, f"conv{k}"),
+                               update_sn=update_sn)
+            if k > 0 and self.norm == "instance":
+                y = spatial.instance_norm(y)
+            y = y.map(lrelu)
+            feats.append(y)
+        y = spatial.conv2d(y, self.conv_out, update_sn=update_sn)
+        if self.use_sigmoid:
+            y = y.map(torch.sigmoid)
+        feats.append(y)
+        return feats if self.get_intermediate_features else feats[-1]
 
-def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
-    """AvgPool2d(3, stride=2, padding=1, count_include_pad=False)."""
+
+def avg_pool_3x3_s2(x):
+    """AvgPool2d(3, stride=2, padding=1, count_include_pad=False), of a
+    tensor or a row-sharded map."""
+    if isinstance(x, Rows):
+        return spatial.avg_pool2d(x, 3, 2, 1)
     return F.avg_pool2d(x, 3, 2, 1, count_include_pad=False)
 
 
@@ -83,8 +111,8 @@ class MultiscaleDiscriminator(nn.Module):
                 input_nc, ndf, n_layers, norm, use_sigmoid,
                 get_intermediate_features))
 
-    def forward(self, x: torch.Tensor,
-                update_sn: bool = False) -> List[List[torch.Tensor]]:
+    def forward(self, x, update_sn: bool = False) -> List[list]:
+        """Each scale's outputs; of a row-sharded ``x`` as ``Rows``."""
         result = []
         for i in range(self.num_D):
             out = getattr(self, f"discriminator_{i}")(x, update_sn)
@@ -107,11 +135,21 @@ class FCDiscriminator(nn.Module):
             cin = f
         self.n = len(dims)
 
-    def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
+    def forward(self, x, update_sn: bool = False):
+        if isinstance(x, Rows):
+            return self.forward_rows(x, update_sn)
         for i in range(self.n):
             x = getattr(self, f"conv{i}")(x, update_sn)
             if i < self.n - 1:
                 x = lrelu(x)
+        return x
+
+    def forward_rows(self, x: Rows, update_sn: bool = False) -> Rows:
+        for i in range(self.n):
+            x = spatial.conv2d(x, getattr(self, f"conv{i}"),
+                               update_sn=update_sn)
+            if i < self.n - 1:
+                x = x.map(lrelu)
         return x
 
 

@@ -223,13 +223,22 @@ class OmniGenerator(nn.Module):
         init_weights(self, generator)
 
     # ---- masker ---------------------------------------------------------
+    # encode, depth, segmentation, mask and paint take row-sharded maps
+    # (``spatial.Rows``) as they take tensors, in either mode: the default
+    # configuration's (``check_rows``)
     def encode(self, x):
+        if isinstance(x, Rows):
+            return self.encoder.forward_rows(x)
         return self.encoder(x)
 
     def depth(self, z, update_sn: bool = False):
+        if spatial.is_rows(z):
+            return self.decoders["d"].forward_rows(z, update_sn)
         return self.decoders["d"](z, update_sn)
 
     def segmentation(self, z, z_depth=None):
+        if spatial.is_rows(z):
+            return self.decoders["s"].forward_rows(z, z_depth)
         return self.decoders["s"](z, z_depth)
 
     def make_m_cond(self, d, s, x=None):
@@ -251,6 +260,10 @@ class OmniGenerator(nn.Module):
         """Mask logits (or their sigmoid) from the encoder's features; the
         SPADE decoder takes ``cond``, or ``make_m_cond`` of the depth and
         seg heads on ``z`` and ``x``, detached."""
+        if spatial.is_rows(z):
+            logits = self.decoders["m"].forward_rows(
+                z, z_depth if self.cfg.m_use_dada else None, update_sn)
+            return logits.map(torch.sigmoid) if sigmoid else logits
         if self.cfg.m_use_spade and cond is None:
             d, zd = self.depth(z)
             cond = self.make_m_cond(d, self.segmentation(z, zd), x).detach()
@@ -306,6 +319,8 @@ class OmniGenerator(nn.Module):
         a train-mode painter runs with eval semantics (running statistics,
         no u/v stored) on its parameters detached, on the plain convs of
         train mode, so the gradient reaches m and x only."""
+        if isinstance(x, Rows):
+            return self.paint_rows(m, x, no_paste, update_sn)
         m = m.to(x.dtype)
         if not self.cfg.p_no_z and z is None:
             z = self.sample_painter_z(x.shape[0], x.shape[2], x.shape[3],
@@ -339,22 +354,21 @@ class OmniGenerator(nn.Module):
                           generator=generator)
         return paste(x, fake, m)
 
-    # ---- row-sharded inference --------------------------------------------
+    # ---- row-sharded forwards ---------------------------------------------
     def infer_masker_rows(self, x: Rows):
         """``infer_masker`` (eval) on a row-sharded image: (depth, seg
         logits, mask) as ``Rows``."""
-        z = self.encoder.forward_rows(x)
-        d, z_depth = self.decoders["d"].forward_rows(z)
-        s = self.decoders["s"].forward_rows(z, z_depth)
-        m = self.decoders["m"].forward_rows(
-            z, z_depth if self.cfg.m_use_dada else None)
-        return d, s, m.map(torch.sigmoid)
+        z = self.encode(x)
+        d, z_depth = self.depth(z)
+        return d, self.segmentation(z, z_depth), self.mask(z, z_depth)
 
-    def paint_rows(self, m: Rows, x: Rows, no_paste: bool = False) -> Rows:
-        """``paint`` (eval, ``no_z``) on row-sharded maps; the paste runs on
-        each shard."""
+    def paint_rows(self, m: Rows, x: Rows, no_paste: bool = False,
+                   update_sn: bool = False) -> Rows:
+        """``paint`` (``no_z``) on row-sharded maps; the paste runs on each
+        shard, with its gradient in train mode."""
         m = m.map(lambda p: p.to(x.dtype))
-        fake = self.painter.forward_rows(x.zip(m, lambda a, b: a * (1.0 - b)))
+        fake = self.painter.forward_rows(
+            x.zip(m, lambda a, b: a * (1.0 - b)), update_sn)
         if self.cfg.p_paste_original_content and not no_paste:
             return paste_rows(x, fake, m)
         return fake
@@ -383,12 +397,14 @@ class OmniGenerator(nn.Module):
         return paste_rows(x, fake, m)
 
 
-def check_rows(c: GenConfig) -> None:
-    """Raises unless the configuration ``c`` has row-sharded forwards:
-    the default one (ResNet encoder with the ASPP decoder, DADA depth in
-    regression, the base mask decoder, a ``no_z`` painter with
-    instance-norm SPADEs and no final shortcut), at any widths and
-    depths."""
+def check_rows(c: GenConfig,
+               what: str = "row-sharded inference (--spatial, --hybrid)"
+               ) -> None:
+    """Raises unless the configuration ``c`` has row-sharded forwards, in
+    eval and train mode: the default one (ResNet encoder with the ASPP
+    decoder, DADA depth in regression, the base mask decoder, a ``no_z``
+    painter with instance-norm SPADEs and no final shortcut), at any
+    widths and depths. ``what``: the caller, for the message."""
     other = {
         "gen.encoder.architecture": (c.encoder_arch, "deeplabv3"),
         "gen.deeplabv3.backbone": (c.backbone, "resnet"),
@@ -404,9 +420,8 @@ def check_rows(c: GenConfig) -> None:
     bad = [f"{k}={v!r}" for k, (v, want) in other.items() if v != want]
     if bad:
         raise NotImplementedError(
-            "row-sharded inference (--spatial, --hybrid) runs the default "
-            "generator configuration; " + ", ".join(bad) + " is not "
-            "row-sharded yet (ROADMAP A.11b-3)")
+            f"{what} runs the default generator configuration; "
+            + ", ".join(bad) + " is not row-sharded yet (ROADMAP A.11b-3)")
 
 
 def paste_rows(x: Rows, fake: Rows, m: Rows) -> Rows:

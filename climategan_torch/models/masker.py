@@ -40,9 +40,9 @@ class MaskBaseDecoder(BaseDecoder):
     def forward(self, z, cond=None, z_depth=None, update_sn: bool = False):
         return super().forward(z, z_depth, update_sn)
 
-    def forward_rows(self, z, z_depth=None):
-        """Mask logits of row-sharded features (eval)."""
-        return super().forward_rows(z, z_depth)
+    def forward_rows(self, z, z_depth=None, update_sn: bool = False):
+        """Mask logits of row-sharded features."""
+        return super().forward_rows(z, z_depth, update_sn)
 
 
 class MaskSpadeDecoder(nn.Module):

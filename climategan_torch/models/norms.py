@@ -37,7 +37,7 @@ from climategan_torch.kernels.spade_cond import (
     pack_spade_cond,
     spade_cond_packed,
 )
-from climategan_torch.parallel import distributed
+from climategan_torch.parallel import distributed, spatial
 from climategan_torch.parallel.spatial import Rows
 
 # rows of conditioning a spade_cond launch reads beyond its output rows on
@@ -54,14 +54,16 @@ def spectral_sigma(weight_bar: torch.Tensor, u: torch.Tensor,
                    v: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One power iteration from the stored ``u`` on the detached OIHW
-    kernel flattened to (O, I*KH*KW), in f32 with autocast off; returns
-    ``(sigma, u, v)``. ``sigma = u @ (W @ v)`` carries the gradient into
-    ``weight_bar``; u and v carry none. (``v`` is not read: the iteration
-    starts from u, as the JAX package's does.)"""
+    kernel flattened to (O, I*KH*KW), in f32 (float64 for a float64
+    kernel) with autocast off; returns ``(sigma, u, v)``. ``sigma = u @ (W
+    @ v)`` carries the gradient into ``weight_bar``; u and v carry none.
+    (``v`` is not read: the iteration starts from u, as the JAX package's
+    does.)"""
+    st = torch.promote_types(weight_bar.dtype, torch.float32)
     with torch.autocast(weight_bar.device.type, enabled=False):
-        w = weight_bar.float().reshape(weight_bar.shape[0], -1)
+        w = weight_bar.to(st).reshape(weight_bar.shape[0], -1)
         w_ng = w.detach()
-        v = _l2normalize(w_ng.t() @ u.float())
+        v = _l2normalize(w_ng.t() @ u.to(st))
         u = _l2normalize(w_ng @ v)
         return u @ (w @ v), u, v
 
@@ -132,6 +134,20 @@ class SNConv(nn.Module):
         if self.spectral and all(k in state_dict for k in keys):
             self.bake(*(state_dict[k] for k in keys))
 
+    def train_weights(self, update_sn: bool = False
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                 torch.Tensor]:
+        """A spectral conv's train-mode (``weight_bar``, bias, ``1 /
+        sigma``) from one power iteration, storing the new u and v under
+        ``update_sn``: one call per forward, whole or row-sharded."""
+        m = self.module
+        sigma, u, v = spectral_sigma(m.weight_bar, m.weight_u, m.weight_v)
+        if update_sn:
+            with torch.no_grad():
+                m.weight_u.copy_(u)
+                m.weight_v.copy_(v)
+        return m.weight_bar, m.bias, 1.0 / sigma
+
     def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
         if not self.spectral:
             return F.conv2d(x, self.weight, self.bias, self.stride,
@@ -140,15 +156,11 @@ class SNConv(nn.Module):
         if not self.training:
             return F.conv2d(x, self.weight, m.bias, self.stride, self.padding,
                             self.dilation)
-        sigma, u, v = spectral_sigma(m.weight_bar, m.weight_u, m.weight_v)
-        if update_sn:
-            with torch.no_grad():
-                m.weight_u.copy_(u)
-                m.weight_v.copy_(v)
-        y = F.conv2d(x, m.weight_bar, None, self.stride, self.padding,
+        weight, bias, scale = self.train_weights(update_sn)
+        y = F.conv2d(x, weight, None, self.stride, self.padding,
                      self.dilation)
-        y = y * (1.0 / sigma).to(y.dtype)
-        return y if m.bias is None else y + m.bias.to(y.dtype)[:, None, None]
+        y = y * scale.to(y.dtype)
+        return y if bias is None else y + bias.to(y.dtype)[:, None, None]
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -161,87 +173,127 @@ class BatchNorm2d(nn.BatchNorm2d):
     advanced (nn.BatchNorm2d reads it only when momentum is None).
 
     Inside a data-parallel step (``distributed.sharded_batch()`` over
-    several ranks) the statistics are the global batch's, as JAX's batch
-    norm over a batch-sharded mesh takes them (``_GlobalBatchNorm``: sums
-    over the ranks give the mean, then the variance of the deviations from
-    it, two passes), with their gradient; every rank's running statistics
-    move by the same values."""
+    several ranks), and on a row-sharded map (``forward_rows``), the
+    statistics are those of the whole global batch, as JAX's batch norm
+    over a data x space mesh takes them (``_GlobalBatchNorm``: sums over
+    the shards and then the ranks give the mean, then the variance of the
+    deviations from it, two passes), with their gradient; the running
+    statistics move once per call, by the same values on every rank."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         if distributed.batch_world() > 1:
-            return self._forward_global(x)
+            return self._forward_global([x])[0]
         y, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
         with torch.no_grad():
             # the batch variance from 1 / sqrt(var + eps), both f32
-            var = invstd.float().pow(-2).sub_(self.eps)
-            self.running_mean.lerp_(mean.float(), self.momentum)
+            var = invstd.to(self.running_var).pow(-2).sub_(self.eps)
+            self.running_mean.lerp_(mean.to(self.running_mean),
+                                    self.momentum)
             self.running_var.lerp_(var, self.momentum)
         return y
 
-    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
-        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
-                                              self.eps)
+    def forward_rows(self, r: Rows) -> Rows:
+        """The forward on a row-sharded map: eval mode on each row alone,
+        train mode over every shard's rows (and every rank's)."""
+        if not self.training:
+            return spatial.apply(r, self)
+        return Rows(self._forward_global(r.parts))
+
+    def _forward_global(self, parts) -> list:
+        *ys, mean, var = _GlobalBatchNorm.apply(self.weight, self.bias,
+                                                self.eps, *parts)
         with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-        return y
+            self.running_mean.lerp_(mean.to(self.running_mean),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var), self.momentum)
+        return ys
 
 
-def _channel_sums(*planes: torch.Tensor) -> torch.Tensor:
-    """Each (N, C, H, W) plane's per-channel sum, accumulated in float64,
-    concatenated, summed over the ranks."""
-    sums = torch.cat([p.sum((0, 2, 3), dtype=torch.float64) for p in planes])
-    torch.distributed.all_reduce(sums)
-    return sums
+def _channel_sums(parts, ranks: bool) -> list:
+    """For each shard (a tuple of (N, C, H, W) planes on its device), the
+    per-channel sums of its planes accumulated in float64 and
+    concatenated; summed over the shards on the first one's device and,
+    with ``ranks``, over the ranks, then copied to each shard's device."""
+    sums = [torch.cat([p.sum((0, 2, 3), dtype=torch.float64)
+                       for p in planes]) for planes in parts]
+    devices = [s.device for s in sums]
+    with spatial.trace_range("spatial.collective"):
+        whole = torch.stack([s.to(devices[0]) for s in sums]).sum(0)
+    if ranks:
+        torch.distributed.all_reduce(whole)
+    return [whole.to(d) for d in devices]
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
-    """Batch norm over a batch split across the ranks: the mean, then the
-    variance of the deviations from it, from per-channel sums over every
-    rank's rows (accumulated in float64, so that they do not depend on how
-    the batch is split); the backward sums the output gradient and its
-    product with the normalized input over the ranks (SyncBatchNorm's
-    form). It saves the input and two per-channel vectors, as
-    ``native_batch_norm`` does; the affine gradients are this rank's
-    share, summed with the other gradients after the backward. Returns
-    the output (in x's dtype) and the batch mean and biased variance
-    (f32, no gradient)."""
+    """Batch norm over a batch split across row shards (the ``*xs``, one
+    per shard, each on its device) and ranks: the mean, then the variance
+    of the deviations from it, from per-channel sums over every shard's
+    and rank's rows (accumulated in float64, so that they do not depend on
+    how the batch is split); the backward sums the output gradient and its
+    product with the normalized input over the shards and ranks
+    (SyncBatchNorm's form). It saves the inputs and two per-channel
+    vectors a shard, as ``native_batch_norm`` does; the affine gradients
+    are this rank's, summed over its shards, and summed over the ranks
+    with the other gradients after the backward. Returns the outputs (in
+    their input's dtype) and the batch mean and biased variance (no
+    gradient). The math runs in f32 (float64 for float64 inputs)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
-        c = x.shape[1]
-        count = x.numel() // c * distributed.world()
-        xf = x.float()
-        mean = (_channel_sums(xf) / count).float()[None, :, None, None]
-        d = xf - mean
-        var = (_channel_sums(d * d) / count).float()
-        invstd = torch.rsqrt(var + eps)[None, :, None, None]
-        y = d * invstd
-        if weight is not None:
-            y = y * weight[None, :, None, None] + bias[None, :, None, None]
-        ctx.save_for_backward(x, weight, mean, invstd)
-        ctx.count = count
+    def forward(ctx, weight, bias, eps, *xs):
+        c = xs[0].shape[1]
+        world = distributed.batch_world()
+        # the backward may run outside the sharded batch's block
+        ctx.ranks = world > 1
+        count = sum(x.numel() for x in xs) // c * world
+        st = torch.promote_types(xs[0].dtype, torch.float32)
+        xfs = [x.to(st) for x in xs]
+        means = [(s / count).to(st)[None, :, None, None]
+                 for s in _channel_sums([(xf,) for xf in xfs], ctx.ranks)]
+        ds = [xf - m for xf, m in zip(xfs, means)]
+        vars_ = [(s / count).to(st)
+                 for s in _channel_sums([(d * d,) for d in ds], ctx.ranks)]
+        ys, invstds = [], []
+        for x, d, v in zip(xs, ds, vars_):
+            invstd = torch.rsqrt(v + eps)[None, :, None, None]
+            y = d * invstd
+            if weight is not None:
+                y = (y * weight.to(x.device)[None, :, None, None]
+                     + bias.to(x.device)[None, :, None, None])
+            ys.append(y.to(x.dtype))
+            invstds.append(invstd)
+        ctx.save_for_backward(weight, *xs, *means, *invstds)
+        ctx.count, ctx.k = count, len(xs)
+        mean, var = means[0].reshape(-1), vars_[0]
         ctx.mark_non_differentiable(mean, var)
-        return y.to(x.dtype), mean.reshape(-1), var
+        return (*ys, mean, var)
 
     @staticmethod
-    def backward(ctx, dy, _mean, _var):
-        x, weight, mean, invstd = ctx.saved_tensors
-        c = x.shape[1]
-        xhat = (x.float() - mean) * invstd
-        dyf = dy.float()
-        sums = (_channel_sums(dyf, dyf * xhat) / ctx.count).float()
-        scale = invstd if weight is None else invstd * weight[None, :, None,
-                                                               None]
-        dx = scale * (dyf - sums[:c][None, :, None, None]
-                      - xhat * sums[c:][None, :, None, None])
+    def backward(ctx, *grads):
+        k = ctx.k
+        weight, *saved = ctx.saved_tensors
+        xs, means, invstds = saved[:k], saved[k:2 * k], saved[2 * k:]
+        c = xs[0].shape[1]
+        st = means[0].dtype
+        xhats = [(x.to(st) - m) * i for x, m, i in zip(xs, means, invstds)]
+        dyfs = [g.to(st) for g in grads[:k]]
+        sums = [(s / ctx.count).to(st) for s in _channel_sums(
+            [(dy, dy * xh) for dy, xh in zip(dyfs, xhats)], ctx.ranks)]
+        dxs, dw, db = [], 0.0, 0.0
+        for x, dy, xh, inv, s in zip(xs, dyfs, xhats, invstds, sums):
+            scale = inv if weight is None else \
+                inv * weight.to(x.device)[None, :, None, None]
+            dx = scale * (dy - s[:c][None, :, None, None]
+                          - xh * s[c:][None, :, None, None])
+            dxs.append(dx.to(x.dtype))
+            if weight is not None:
+                dw = dw + (dy * xh).sum((0, 2, 3)).to(weight.device)
+                db = db + dy.sum((0, 2, 3)).to(weight.device)
         if weight is None:
-            return dx.to(x.dtype), None, None, None
-        return (dx.to(x.dtype), (dyf * xhat).sum((0, 2, 3)),
-                dyf.sum((0, 2, 3)), None)
+            return (None, None, None, *dxs)
+        return (dw, db, None, *dxs)
 
 
 @torch.no_grad()
@@ -281,11 +333,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Instance norm without affine, biased variance; the statistics
-    accumulate in f32 even for bf16 input."""
-    mean = torch.mean(x, dim=(2, 3), keepdim=True, dtype=torch.float32)
+    accumulate in f32 even for bf16 input (float64 in float64)."""
+    st = torch.promote_types(x.dtype, torch.float32)
+    mean = torch.mean(x, dim=(2, 3), keepdim=True, dtype=st)
     diff = x - mean.to(x.dtype)
-    var = torch.mean(diff * diff, dim=(2, 3), keepdim=True,
-                     dtype=torch.float32)
+    var = torch.mean(diff * diff, dim=(2, 3), keepdim=True, dtype=st)
     return diff * torch.rsqrt(var + eps).to(x.dtype)
 
 
@@ -388,6 +440,23 @@ class SPADE(nn.Module):
         if normalized is None:
             normalized = self.normalize(x)
         return normalized * (1.0 + self.mlp_gamma(actv)) + self.mlp_beta(actv)
+
+    def normalize_rows(self, x: Rows) -> Rows:
+        if self.param_free_norm is None:
+            return spatial.instance_norm(x)
+        return self.param_free_norm.forward_rows(x)
+
+    def forward_train_rows(self, x: Rows, seg: Rows,
+                           normalized: Optional[Rows] = None) -> Rows:
+        """``forward_train`` on row-sharded maps: ``seg`` the conditioning
+        rows split as x's; its three convs read their halos."""
+        actv = spatial.conv2d(seg, self.mlp_shared[0]).map(F.relu)
+        if normalized is None:
+            normalized = self.normalize_rows(x)
+        gamma = spatial.conv2d(actv, self.mlp_gamma)
+        beta = spatial.conv2d(actv, self.mlp_beta)
+        return spatial.each(lambda n, g, b: n * (1.0 + g) + b, normalized,
+                            gamma, beta)
 
 
 def make_pack(pack_fn, *args) -> SpadePack:

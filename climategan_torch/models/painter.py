@@ -77,18 +77,19 @@ class PainterSpadeDecoder(nn.Module):
         y = self.final_spade(y, cond, update_sn)
         return torch.tanh(self.conv_img(lrelu(y)))
 
-    def forward_rows(self, cond: Rows) -> Rows:
-        """The eval forward of a ``no_z`` painter without the final shortcut
-        on a row-sharded ``cond``. Its first maps (H / 2^spade_n_up rows)
-        may give a shard no rows."""
+    def forward_rows(self, cond: Rows, update_sn: bool = False) -> Rows:
+        """The forward of a ``no_z`` painter without the final shortcut on
+        a row-sharded ``cond``. Its first maps (H / 2^spade_n_up rows) may
+        give a shard no rows."""
         if not hasattr(self, "fc") or hasattr(self, "final_shortcut_conv"):
             raise ValueError("row-sharded painting takes a no_z painter "
                              "without the final shortcut (ROADMAP A.11b-3)")
         zh = cond.h // 2 ** self.spade_n_up
         zw = cond.w // 2 ** self.spade_n_up
         z = spatial.conv2d(spatial.resize(cond, (zh, zw), "nearest"), self.fc)
-        y = self.head_0.forward_rows(z, cond)
+        y = self.head_0.forward_rows(z, cond, update_sn)
         for block in (self.G_middle_0, self.G_middle_1, *self.up_spades):
-            y = block.forward_rows(spatial.upsample_nearest(y), cond)
-        y = self.final_spade.forward_rows(y, cond)
+            y = block.forward_rows(spatial.upsample_nearest(y), cond,
+                                   update_sn)
+        y = self.final_spade.forward_rows(y, cond, update_sn)
         return spatial.conv2d(y.map(lrelu), self.conv_img).map(torch.tanh)

@@ -42,13 +42,14 @@ class Bottleneck(nn.Module):
         return F.relu(y + residual)
 
     def forward_rows(self, x: Rows) -> Rows:
-        """The eval forward on a row-sharded map (eval batch norms act on
-        each row alone)."""
-        y = spatial.apply(spatial.conv2d(x, self.conv1), self.bn1).map(F.relu)
-        y = spatial.apply(spatial.conv2d(y, self.conv2), self.bn2).map(F.relu)
-        y = spatial.apply(spatial.conv2d(y, self.conv3), self.bn3)
-        residual = x if self.downsample is None else spatial.apply(
-            spatial.conv2d(x, self.downsample[0]), self.downsample[1])
+        """The forward on a row-sharded map (eval batch norms act on each
+        row alone, train-mode ones over all rows)."""
+        y = self.bn1.forward_rows(spatial.conv2d(x, self.conv1)).map(F.relu)
+        y = self.bn2.forward_rows(spatial.conv2d(y, self.conv2)).map(F.relu)
+        y = self.bn3.forward_rows(spatial.conv2d(y, self.conv3))
+        residual = x if self.downsample is None else \
+            self.downsample[1].forward_rows(
+                spatial.conv2d(x, self.downsample[0]))
         return y.zip(residual, lambda a, b: F.relu(a + b))
 
 
@@ -88,11 +89,11 @@ class ResNetEncoder(nn.Module):
         return y, low
 
     def forward_rows(self, x: Rows):
-        """The eval forward on a row-sharded image: (z_high, z_low) as
+        """The forward on a row-sharded image: (z_high, z_low) as
         ``Rows``. The stem's 7x7/2 conv and the max pool (-inf beyond the
         image) read across shards, as do layer3's and layer4's dilated
         convs (up to 16 rows at output stride 8)."""
-        y = spatial.apply(spatial.conv2d(x, self.conv1), self.bn1).map(F.relu)
+        y = self.bn1.forward_rows(spatial.conv2d(x, self.conv1)).map(F.relu)
         y = spatial.max_pool2d(y, 3, 2, 1)
         low = _layer_rows(self.layer1, y)
         y = low

@@ -24,7 +24,9 @@ def resize(x: torch.Tensor, size, mode: str = "bilinear",
         return F.interpolate(x, size=(h, w), mode="nearest")
     if mode not in ("bilinear", "bicubic"):
         raise ValueError(f"Unsupported interpolation mode: {mode}")
-    y = F.interpolate(x.float(), size=(h, w), mode=mode,
+    # at least f32 (float64 stays float64)
+    y = F.interpolate(x.to(torch.promote_types(x.dtype, torch.float32)),
+                      size=(h, w), mode=mode,
                       align_corners=align_corners)
     return y.to(x.dtype)
 

@@ -74,10 +74,13 @@ def _launcher_env() -> Optional[Tuple[int, int, int]]:
 
 
 def maybe_init_distributed(device="cuda", backend: Optional[str] = None,
-                           verbose: int = 0) -> torch.device:
+                           verbose: int = 0,
+                           spatial_shards: int = 1) -> torch.device:
     """Start the process group when this process is one rank of a
     multi-process launch, and return the device it runs on: ``cuda`` means
-    ``cuda:LOCAL_RANK`` (a device with an index is kept), ``cpu`` the CPU.
+    ``cuda:LOCAL_RANK`` (a device with an index is kept), or under
+    ``spatial_shards`` k the first of the k cards the rank owns
+    (``mesh.spatial_devices``: ``cuda:LOCAL_RANK * k``), ``cpu`` the CPU.
     The backend is ``backend``, else ``nccl`` on a card and ``gloo`` on the
     CPU; nothing is retried on another. A single process (or
     ``CLIMATEGAN_DISTRIBUTED=0``) starts nothing and gets ``device``
@@ -91,7 +94,11 @@ def maybe_init_distributed(device="cuda", backend: Optional[str] = None,
     if launch is None:
         return device
     rank_, world_, local = launch
-    device = _device_of_rank(device, local)
+    from climategan_torch.parallel.mesh import spatial_devices
+
+    shards = (spatial_devices(device, spatial_shards, local)
+              if device.type == "cuda" and device.index is None else None)
+    device = shards[0] if shards else _device_of_rank(device, local)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
@@ -121,6 +128,12 @@ def _device_of_rank(device: torch.device,
 def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def local_rank() -> int:
+    """This process's rank on its node (LOCAL_RANK; 0 without a group)."""
+    launch = _launcher_env() if dist.is_initialized() else None
+    return launch[2] if launch else 0
 
 
 def rank() -> int:

@@ -11,7 +11,9 @@ rows; here a serving process holds one replica of the model per device of
 ``make_mesh_2d`` orders them). A training process is one rank of a group
 (``distributed.py``) that takes its rows of the global batch
 (``shard_batch``) from a state that ``replicate`` made equal on every
-rank; row-sharded training is ROADMAP A.11b-2.
+rank, and under ``tpu.spatial_shards`` k splits each image's rows over k
+devices of its own (``spatial_devices``: rank r of a node owns cards
+[r k, (r + 1) k)), the hybrid data x space layout.
 """
 from __future__ import annotations
 
@@ -60,6 +62,47 @@ def hybrid_size(batch: int, rows: int, n: int, sp: int) -> int:
     if n < sp:
         raise ValueError(f"--hybrid {sp} needs {sp} devices, got {n}")
     return mesh_size(batch, n // sp)
+
+
+def spatial_shards(opts) -> int:
+    """``tpu.spatial_shards`` (1 when unset)."""
+    return int((opts.get("tpu", {}) or {}).get("spatial_shards", 1) or 1)
+
+
+def owned_cards(k: int, local_rank: int, n_cards: int) -> int:
+    """How many of the cards [r k, (r + 1) k) that rank r of a node owns
+    exist among ``n_cards``."""
+    return max(0, min(k, n_cards - local_rank * k))
+
+
+def spatial_devices(device, k: int, local_rank: int = 0,
+                    n_cards: Optional[int] = None
+                    ) -> Optional[List[torch.device]]:
+    """The row shards' devices of a training rank under
+    ``tpu.spatial_shards`` k, by the JAX trainer's rule over the devices
+    the rank owns: on a card, rank ``local_rank`` of a node owns cards
+    [r k, (r + 1) k) (start ``cards / k`` ranks a node) and shards over
+    them where k divides them, that is where all k exist; on the CPU the
+    shards share it. None where k does not divide the rank's cards: the
+    rank trains unsharded, as JAX falls back to pure data parallelism
+    (``fallback_message``). k <= 1: None."""
+    device = torch.device(device)
+    if k <= 1:
+        return None
+    if device.type != "cuda":
+        return [device] * k
+    n = torch.cuda.device_count() if n_cards is None else n_cards
+    if owned_cards(k, local_rank, n) != k:
+        return None
+    return [torch.device("cuda", i)
+            for i in range(local_rank * k, (local_rank + 1) * k)]
+
+
+def fallback_message(k: int, n_devices: int) -> str:
+    """The JAX trainer's message when ``tpu.spatial_shards`` does not
+    divide the devices."""
+    return (f"tpu.spatial_shards={k} does not divide the {n_devices}-device "
+            "mesh; falling back to pure DP")
 
 
 def hybrid_groups(devices: Sequence, dp: int, sp: int

@@ -21,11 +21,17 @@ the result back (``all_reduce``). Resizes take rows ``[lo, hi)`` of the
 with PyTorch's own rules and cached, on the source rows they read; the
 width axis is ``ops/interpolate.resize``.
 
-Modules run on each shard's device through ``local(module, device)``: the
-replicas of one model on several devices are linked once
+In eval mode modules run on each shard's device through ``local(module,
+device)``: the replicas of one model on several devices are linked once
 (``link_replicas``) and each submodule finds its twin on a shard's device.
-The sharded forwards are eval mode only. Exchanges and collectives run
-inside ``torch.profiler.record_function`` ranges ("spatial.exchange",
+In train mode there is one set of parameters: every shard reads the
+module's own parameters through ``.to(device)`` (no copy on their own
+device), so autograd sums each shard's gradient into them, and a spectral
+conv runs its power iteration once per call (``conv_weights``) for every
+shard. The halos, resizes and reductions are slices, copies, products and
+stacks, all differentiable, so the backward of a sharded forward is the
+backward of the whole map. Exchanges and collectives run inside
+``torch.profiler.record_function`` ranges ("spatial.exchange",
 "spatial.collective") while a profiler is on, so a trace tells their share.
 """
 from __future__ import annotations
@@ -50,7 +56,7 @@ def split(h: int, k: int) -> List[Tuple[int, int]]:
     return [(i * h // k, (i + 1) * h // k) for i in range(k)]
 
 
-def _range(name: str):
+def trace_range(name: str):
     """A profiler range while a profiler is on, else nothing."""
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
@@ -88,6 +94,11 @@ class Rows:
 
     @property
     def dtype(self) -> torch.dtype:
+        """The dtype of the first shard with rows (an empty shard made
+        outside an autocast op may keep the input's)."""
+        for p in self.parts:
+            if p.shape[-2]:
+                return p.dtype
         return self.parts[0].dtype
 
     def bounds(self, i: int) -> Tuple[int, int]:
@@ -116,7 +127,7 @@ class Rows:
             return self.like(0, device)
         if len(pieces) == 1 and pieces[0].device == torch.device(device):
             return pieces[0]
-        with _range("spatial.exchange"):
+        with trace_range("spatial.exchange"):
             pieces = [q.to(device) for q in pieces]
             return pieces[0] if len(pieces) == 1 else torch.cat(pieces, 2)
 
@@ -145,6 +156,28 @@ class Rows:
         return self.fetch(0, self.h, device)
 
 
+def each(fn: Callable, *args):
+    """``fn`` shard by shard where any argument is a ``Rows`` (the others
+    passed to every call as they are; the maps split alike), else ``fn``
+    of the arguments: an op of each row's own values on a map that may be
+    sharded."""
+    maps = [a for a in args if isinstance(a, Rows)]
+    if not maps:
+        return fn(*args)
+    for m in maps[1:]:
+        if m.starts != maps[0].starts:
+            raise ValueError(f"maps split as {maps[0].starts} and "
+                             f"{m.starts}")
+    return Rows([fn(*(a.parts[i] if isinstance(a, Rows) else a
+                      for a in args)) for i in range(maps[0].k)])
+
+
+def is_rows(z) -> bool:
+    """Whether ``z`` is a ``Rows`` or a tuple or list of them."""
+    return isinstance(z, Rows) or (isinstance(z, (list, tuple)) and bool(z)
+                                   and isinstance(z[0], Rows))
+
+
 # ---- batches in and out ----------------------------------------------------
 
 def shard_rows(x: torch.Tensor, devices: Sequence, dtype=None,
@@ -163,6 +196,15 @@ def shard_rows(x: torch.Tensor, devices: Sequence, dtype=None,
     return Rows(parts)
 
 
+def split_rows(t: torch.Tensor, devices: Sequence) -> Rows:
+    """The rows (axis -2) of ``t``, an (N, C, H, W) map or (N, H, W)
+    labels, split over ``devices`` by the partition rule, each shard a copy
+    on its device (a view where it is already there)."""
+    h = t.shape[-2]
+    return Rows([t.narrow(t.ndim - 2, lo, hi - lo).to(d)
+                 for (lo, hi), d in zip(split(h, len(devices)), devices)])
+
+
 def gather_rows(r: Rows, device, nhwc: bool = False) -> torch.Tensor:
     """The whole map on ``device`` (NHWC where asked)."""
     y = r.gather(device)
@@ -175,8 +217,9 @@ def all_reduce(values: Sequence[Optional[torch.Tensor]], op: str,
                devices: Sequence) -> List[torch.Tensor]:
     """The sum, min or max of the shards' partials (None for a shard with
     nothing to give), taken on the first device, copied to each shard's
-    device."""
-    with _range("spatial.collective"):
+    device; copies and a stack, so with a gradient to every partial (a
+    min or max's to the partial that holds it)."""
+    with trace_range("spatial.collective"):
         first = torch.device(devices[0])
         got = [v.to(first) for v in values if v is not None]
         stacked = torch.stack(got)
@@ -220,8 +263,8 @@ def local(module: nn.Module, device) -> nn.Module:
 
 def apply(r: Rows, module: nn.Module) -> Rows:
     """A module that acts on each row alone (an eval batch norm, an
-    activation) on every shard, through its replica on the shard's
-    device."""
+    activation) on every shard, through its replica on the shard's device
+    (eval mode)."""
     return Rows([local(module, p.device)(p) if p.shape[2] else p
                  for p in r.parts])
 
@@ -258,7 +301,7 @@ def window(r: Rows, lo: int, hi: int, device, mode: str = "zero"
             raise ValueError(f"a reflect pad of {n} rows on a map of {h}")
         return r.fetch(a, b, device).flip(2)
 
-    with _range("spatial.exchange"):
+    with trace_range("spatial.exchange"):
         pieces = ([pad(n_top, True)] if n_top else []) + [mid] + (
             [pad(n_bot, False)] if n_bot else [])
         return torch.cat(pieces, 2)
@@ -281,24 +324,40 @@ def conv_spec(conv: nn.Module) -> Tuple[int, int, int]:
     return s, p, d
 
 
-def conv_weights(conv: nn.Module
-                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(weight, bias) that an eval forward of ``conv`` reads: an
-    ``nn.Conv2d``'s, or an ``SNConv``'s baked kernel and its bias."""
+def conv_weights(conv: nn.Module, update_sn: bool = False
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                            Optional[torch.Tensor]]:
+    """(weight, bias, scale) that a forward of ``conv`` reads: an
+    ``nn.Conv2d``'s weight and bias, or an eval ``SNConv``'s baked kernel
+    and its bias, with no scale; a train-mode spectral ``SNConv``'s
+    ``weight_bar``, bias and ``1 / sigma`` from one power iteration
+    (``SNConv.train_weights``, which stores u/v under ``update_sn``)."""
     if isinstance(conv, nn.Conv2d):
-        return conv.weight, conv.bias
-    if conv.training:
-        raise ValueError("row-sharded forwards run in eval mode")
+        return conv.weight, conv.bias, None
+    if conv.training and conv.spectral:
+        return conv.train_weights(update_sn)
     bias = conv.module.bias if conv.spectral else conv.bias
-    return conv.weight, bias
+    return conv.weight, bias, None
+
+
+def _out_dtype(dtype: torch.dtype, device: torch.device) -> torch.dtype:
+    """The dtype a conv gives an input of ``dtype``: autocast's where it
+    is on."""
+    if torch.is_autocast_enabled(device.type):
+        return torch.get_autocast_dtype(device.type)
+    return dtype
 
 
 def conv2d(r: Rows, conv: nn.Module, pad: int = 0,
-           mode: str = "zero") -> Rows:
-    """``conv`` (an ``nn.Conv2d`` or an eval ``SNConv``) on the sharded
-    map. ``pad``/``mode``: a pad of the input before the conv on all four
+           mode: str = "zero", update_sn: bool = False) -> Rows:
+    """``conv`` (an ``nn.Conv2d`` or an ``SNConv``) on the sharded map.
+    ``pad``/``mode``: a pad of the input before the conv on all four
     sides (``Conv2dBlock``'s), with the conv's own padding 0; else the
-    conv's zero padding."""
+    conv's zero padding. In eval mode each shard runs the conv's replica
+    on its device; in train mode the conv's own weights, read once for
+    all shards (one power iteration, u/v stored under ``update_sn``), as
+    the unsharded train forward computes: the spectral scale after the
+    conv, then the bias."""
     s, p, d = conv_spec(conv)
     if pad:
         if p:
@@ -308,20 +367,30 @@ def conv2d(r: Rows, conv: nn.Module, pad: int = 0,
     h_out = out_rows(r.h, kh, s, p, d)
     kw = conv.weight.shape[3]
     w_out = out_rows(r.parts[0].shape[3], kw, s, p, d)
+    train = conv.training
+    # train mode: the weights of one power iteration, for every shard
+    w0, b0, scale = (conv_weights(conv, update_sn) if train
+                     else (None, None, None))
     parts = []
     for (a, b), dev in zip(split(h_out, r.k), r.devices):
-        m = local(conv, dev)
-        w, bias = conv_weights(m)
+        if train:
+            w, bias = w0.to(dev), None if b0 is None else b0.to(dev)
+        else:
+            w, bias, _ = conv_weights(local(conv, dev))
         if a == b:
-            parts.append(r.like(0, dev, w.shape[0], w_out))
+            parts.append(r.like(0, dev, w.shape[0], w_out,
+                                _out_dtype(r.dtype, torch.device(dev))))
             continue
         win = window(r, a * s - p, (b - 1) * s - p + d * (kh - 1) + 1, dev,
                      mode)
-        if mode == "zero":
-            y = F.conv2d(win, w, bias, s, (0, p), d)
-        else:
+        if mode != "zero":
             win = F.pad(win, (p, p, 0, 0), mode=mode)
-            y = F.conv2d(win, w, bias, s, 0, d)
+        y = F.conv2d(win, w, bias if scale is None else None, s,
+                     (0, p) if mode == "zero" else 0, d)
+        if scale is not None:
+            y = y * scale.to(dev).to(y.dtype)
+            if bias is not None:
+                y = y + bias.to(y.dtype)[:, None, None]
         parts.append(y)
     return Rows(parts)
 
@@ -342,17 +411,41 @@ def max_pool2d(r: Rows, kernel: int, stride: int, padding: int) -> Rows:
     return Rows(parts)
 
 
+def avg_pool2d(r: Rows, kernel: int, stride: int, padding: int) -> Rows:
+    """``F.avg_pool2d(x, kernel, stride, padding, count_include_pad=
+    False)``: each window's sum over the count of its pixels inside the
+    image, which differs from kernel^2 only at the image's edges, never at
+    a shard's."""
+    h_out = out_rows(r.h, kernel, stride, padding, 1)
+    w_out = out_rows(r.w, kernel, stride, padding, 1)
+    parts = []
+    for (a, b), dev in zip(split(h_out, r.k), r.devices):
+        if a == b:
+            parts.append(r.like(0, dev, width=w_out))
+            continue
+        lo, hi = a * stride - padding, (b - 1) * stride - padding + kernel
+        win = window(r, lo, hi, dev, "zero")
+        inside = torch.zeros((1, 1, hi - lo, r.w), dtype=win.dtype,
+                             device=dev)
+        inside[:, :, max(0, -lo):min(hi, r.h) - lo] = 1.0
+        sums, counts = (F.avg_pool2d(t, kernel, stride, (0, padding),
+                                     divisor_override=1)
+                        for t in (win, inside))
+        parts.append(sums / counts)
+    return Rows(parts)
+
+
 # ---- resizes -------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def row_operator(h_in: int, h_out: int, mode: str,
-                 align_corners: bool) -> np.ndarray:
+def row_operator(h_in: int, h_out: int, mode: str, align_corners: bool,
+                 dtype: torch.dtype = torch.float32) -> np.ndarray:
     """The (h_out, h_in) operator of ``F.interpolate`` along the rows: the
-    interpolation of the identity in float32, so each output row's weights
-    (computed in float32, as for the float32 maps it serves) and the
-    source rows it reads (clamped at the borders) are PyTorch's own; kept
-    in float64."""
-    eye = torch.eye(h_in, dtype=torch.float32).reshape(1, h_in, h_in, 1)
+    interpolation of the identity in ``dtype``, so each output row's
+    weights (computed in float32 for the f32 and bf16 maps it serves, in
+    float64 for float64 ones) and the source rows it reads (clamped at the
+    borders) are PyTorch's own; kept in float64."""
+    eye = torch.eye(h_in, dtype=dtype).reshape(1, h_in, h_in, 1)
     if mode == "nearest":
         y = F.interpolate(eye, size=(h_out, 1), mode="nearest")
     else:
@@ -372,15 +465,20 @@ def nearest_rows(h_in: int, h_out: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _operator_rows(h_in: int, h_out: int, mode: str, align_corners: bool,
-                   lo: int, hi: int, device: torch.device
+                   lo: int, hi: int, device: torch.device,
+                   dtype: torch.dtype = torch.float32
                    ) -> Tuple[torch.Tensor, int, int]:
     """Rows [lo, hi) of the operator, cut to the source rows [c0, c1) they
-    read, as float32 on ``device``; with (c0, c1)."""
-    m = row_operator(h_in, h_out, mode, align_corners)[lo:hi]
+    read, in ``dtype`` (float32 or float64) on ``device``; with (c0,
+    c1)."""
+    m = row_operator(h_in, h_out, mode, align_corners, dtype)[lo:hi]
     cols = np.nonzero(np.any(m != 0.0, axis=0))[0]
     c0, c1 = int(cols[0]), int(cols[-1]) + 1
-    return (torch.from_numpy(np.ascontiguousarray(m[:, c0:c1]))
-            .to(torch.float32).to(device), c0, c1)
+    # a normal tensor even when first made in an inference-mode forward: a
+    # later training forward saves it for its backward
+    with torch.inference_mode(False):
+        return (torch.from_numpy(np.ascontiguousarray(m[:, c0:c1]))
+                .to(dtype).to(device), c0, c1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -388,7 +486,8 @@ def _nearest_index(h_in: int, h_out: int, lo: int, hi: int,
                    device: torch.device) -> Tuple[torch.Tensor, int, int]:
     src = nearest_rows(h_in, h_out)[lo:hi]
     c0, c1 = int(src.min()), int(src.max()) + 1
-    return torch.from_numpy(src - c0).to(device), c0, c1
+    with torch.inference_mode(False):  # as _operator_rows
+        return torch.from_numpy(src - c0).to(device), c0, c1
 
 
 class Resized:
@@ -402,6 +501,10 @@ class Resized:
         self.h, self.w = int(size[0]), int(size[1])
         self.mode, self.align_corners = mode, bool(align_corners)
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.src.dtype
+
     def fetch(self, lo: int, hi: int, device) -> torch.Tensor:
         src, device = self.src, torch.device(device)
         if hi <= lo:
@@ -413,11 +516,13 @@ class Resized:
             idx, c0, c1 = _nearest_index(src.h, self.h, lo, hi, device)
             rows = src.fetch(c0, c1, device).index_select(2, idx)
         else:
-            # in f32 through both axes, one cast at the end, as resize
+            # in f32 (float64 for float64) through both axes, one cast at
+            # the end, as resize
+            st = torch.promote_types(src.dtype, torch.float32)
             m, c0, c1 = _operator_rows(src.h, self.h, self.mode,
-                                       self.align_corners, lo, hi, device)
+                                       self.align_corners, lo, hi, device, st)
             win = src.fetch(c0, c1, device)
-            y = torch.matmul(m, win.float())
+            y = torch.matmul(m, win.to(st))
             if y.shape[3] != self.w:
                 y = F.interpolate(y, size=(hi - lo, self.w), mode=self.mode,
                                   align_corners=self.align_corners)
@@ -456,20 +561,29 @@ def upsample_nearest(r: Rows, factor: int = 2) -> Rows:
 
 # ---- reductions over rows ------------------------------------------------
 
+def total(values: Sequence[Optional[torch.Tensor]], devices: Sequence
+          ) -> torch.Tensor:
+    """The sum of the shards' partials (None for a shard with nothing to
+    give) on the first device, with its gradient to each."""
+    return all_reduce(values, "sum", devices[:1])[0]
+
+
 def instance_norm(r: Rows, eps: float = 1e-5) -> Rows:
     """``norms.instance_norm`` over the whole map: the per-(N, C) mean from
     the shards' float64 sums, then the variance of the deviations from it;
-    the statistics in f32 as the unsharded norm keeps them."""
+    the statistics in f32 (float64 for float64) as the unsharded norm
+    keeps them."""
     count = r.h * r.parts[0].shape[3]
+    st = torch.promote_types(r.dtype, torch.float32)
 
     def sums(parts):
         return all_reduce([p.sum((2, 3), keepdim=True, dtype=torch.float64)
                            if p.shape[2] else None for p in parts], "sum",
                           r.devices)
 
-    means = [(s / count).float() for s in sums(r.parts)]
+    means = [(s / count).to(st) for s in sums(r.parts)]
     diffs = [p - m.to(p.dtype) for p, m in zip(r.parts, means)]
-    vars_ = [(s / count).float() for s in sums([d * d for d in diffs])]
+    vars_ = [(s / count).to(st) for s in sums([d * d for d in diffs])]
     return Rows([d * torch.rsqrt(v + eps).to(d.dtype)
                  for d, v in zip(diffs, vars_)])
 

@@ -25,6 +25,16 @@ Each rank runs on ``cuda:LOCAL_RANK`` over NCCL (``--dist_backend gloo``
 takes gloo instead); rank 0 picks the run dir and writes everything in
 it; the world size must divide the per-domain batch
 (``trainer.check_data_axis``).
+
+Row-sharded, each image's rows split over k cards of each rank (hybrid
+data x space over several ranks; k shards of the CPU with ``--device
+cpu``):
+
+    python -m torch.distributed.run --nproc_per_node <cards / k> \
+        -m climategan_torch.train tpu.spatial_shards=k ...
+
+Rank r runs on the cards [r k, (r + 1) k); where k does not divide the
+rank's cards it prints the JAX trainer's message and trains unsharded.
 """
 from __future__ import annotations
 
@@ -85,16 +95,23 @@ def main(argv=None) -> int:
     bad = [a for a in rest if "=" not in a]
     if bad:
         parser.error(f"overrides are key=value, got {bad}")
+    from climategan_torch.parallel.mesh import spatial_shards
+    from climategan_torch.utils.opts import load_opts, parse_overrides
+
+    overrides = parse_overrides(rest)
+    cli = overrides.pop("args", None) or {}
+    opts = load_opts(path=cli.get("config"), commandline_opts=overrides)
     # join the process group before anything touches the card
-    device = distributed.maybe_init_distributed(args.device,
-                                                args.dist_backend, verbose=1)
+    device = distributed.maybe_init_distributed(
+        args.device, args.dist_backend, verbose=1,
+        spatial_shards=spatial_shards(opts))
     try:
-        return _train(rest, device)
+        return _train(opts, cli, device)
     finally:
         distributed.shutdown()
 
 
-def _train(rest, device) -> int:
+def _train(opts, cli, device) -> int:
     import yaml
 
     from climategan_torch.parallel import distributed
@@ -102,15 +119,10 @@ def _train(rest, device) -> int:
     from climategan_torch.utils.opts import (
         find_existing_training,
         get_increased_path,
-        load_opts,
-        parse_overrides,
         write_job_id,
     )
 
-    overrides = parse_overrides(rest)
-    cli = overrides.pop("args", None) or {}
     resume = bool(cli.get("resume"))
-    opts = load_opts(path=cli.get("config"), commandline_opts=overrides)
 
     out = Path(str(opts.output_path))
     resume = resume or bool(opts.train.get("resume"))

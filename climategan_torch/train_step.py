@@ -78,6 +78,20 @@ are summed over the ranks before the optimizer call (``autograd.grad``
 fires no DDP hook, so the step reduces them itself). The step then equals
 one process's on the global batch, and every rank holds the same state.
 Without a group nothing of this issues a collective.
+
+Row-sharded (``devices=``, ``tpu.spatial_shards``): each micro-batch's
+maps are split by rows over the k devices (``spatial.split_rows``: images,
+masks, depth targets and the (N, H, W) seg labels by the same rule), after
+the split into micro-batches and, on a rank, of its rows of the batch.
+G and D run their ``forward_rows`` in train mode on the shards and each
+loss takes the row-sharded maps (``losses.py``), so each shard's
+gradients reach the one set of parameters (every shard reads them through
+``.to(device)``), where autograd sums them; then the ranks' sums, as
+above. The batch norms' statistics are those of every shard (and rank),
+the spectral convs run one power iteration per call, the paste runs per
+shard. Under several ranks this is the hybrid data x space step. The
+options that cross rows or are not ported on rows raise
+(``check_row_sharded_step``).
 """
 from __future__ import annotations
 
@@ -103,7 +117,9 @@ from climategan_torch.models.generator import OmniGenerator, create_generator
 from climategan_torch.ops.diff_aug import DiffTransforms
 from climategan_torch.ops.interpolate import resize
 from climategan_torch.optim import build_lr_scales, clamp_params, make_optimizer
-from climategan_torch.parallel import distributed
+from climategan_torch.models.generator import GenConfig, check_rows
+from climategan_torch.parallel import distributed, spatial
+from climategan_torch.parallel.spatial import Rows, each
 
 Batch = Dict[str, Dict[str, torch.Tensor]]
 Draws = Tuple[float, bool]
@@ -325,6 +341,45 @@ def remat_contexts(buffers: List[torch.Tensor],
     return fwd, recompute()
 
 
+def _detach(t):
+    return each(lambda p: p.detach(), t)
+
+
+def shard_rows(batch: Batch, devices) -> Batch:
+    """Every map of a batch split by rows over ``devices``
+    (``spatial.split_rows``)."""
+    return {dom: {key: spatial.split_rows(t, devices) for key, t in d.items()}
+            for dom, d in batch.items()}
+
+
+def check_row_sharded_step(opts, vgg: bool = False) -> None:
+    """Raises a ``ValueError`` naming each step option of ``opts`` that a
+    row-sharded step does not take (ROADMAP A.11b-2b), and ``check_rows``'s
+    error for a generator configuration without row-sharded forwards
+    (A.11b-3). ``vgg``: the perceptual loss has a VGG."""
+    c = TrainConfig.from_opts(opts)
+    tpu = opts.get("tpu", {}) or {}
+    refused = {
+        "dis.p.use_local_discriminator (the local painter D)": c.p_use_local,
+        "gen.m.use_pl4m": c.use_pl4m,
+        "dis.{m,s}.gan_type WGAN_gp": "WGAN_gp" in (c.m_gan_type,
+                                                    c.s_gan_type),
+        "gen.p.diff_aug.use (its translation and cutout cross rows)":
+            c.p_diff_aug_use,
+        "tpu.remat": bool(tpu.get("remat", False)),
+        "tpu.remat_d": bool(tpu.get("remat_d", False)),
+        "the VGG perceptual loss (train.lambdas.G.p.vgg with VGG weights)":
+            vgg and c.use_vgg and "p" in c.tasks,
+    }
+    bad = [k for k, on in refused.items() if on]
+    if bad:
+        raise ValueError("row-sharded training (tpu.spatial_shards > 1) does "
+                         "not take " + "; ".join(bad) + " yet (ROADMAP "
+                         "A.11b-2b)")
+    check_rows(GenConfig.from_opts(opts),
+               "row-sharded training (tpu.spatial_shards > 1)")
+
+
 def split_micro(batch: Batch, k: int) -> List[Batch]:
     """A batch as k micro-batches of contiguous slices of each tensor (on
     a rank of a data-parallel step, its rows of each global micro-batch)."""
@@ -351,12 +406,17 @@ class TrainState:
 
 def divide_pred(pred):
     """(real, fake) halves of a discriminator output of a real || fake
-    batch."""
+    batch (tensors or row-sharded maps)."""
+    def real(t):
+        return each(lambda p: p[: p.shape[0] // 2], t)
+
+    def fake(t):
+        return each(lambda p: p[p.shape[0] // 2:], t)
+
     if isinstance(pred, (list, tuple)):
-        real = [[t[: t.shape[0] // 2] for t in scale] for scale in pred]
-        fake = [[t[t.shape[0] // 2:] for t in scale] for scale in pred]
-        return real, fake
-    return pred[: pred.shape[0] // 2], pred[pred.shape[0] // 2:]
+        return ([[real(t) for t in scale] for scale in pred],
+                [[fake(t) for t in scale] for scale in pred])
+    return real(pred), fake(pred)
 
 
 @contextlib.contextmanager
@@ -375,6 +435,13 @@ def frozen(module: nn.Module) -> Iterator[None]:
 def _named(module: nn.Module) -> Tuple[List[str], List[torch.Tensor]]:
     named = list(module.named_parameters())
     return [n for n, _ in named], [p for _, p in named]
+
+
+def _real_fake(m, x, fake):
+    """The painter D's input: [m | x] || [m | fake] along the batch."""
+    return each(lambda m_, x_, f_: torch.cat([torch.cat([m_, x_], dim=1),
+                                              torch.cat([m_, f_], dim=1)],
+                                             dim=0), m, x, fake)
 
 
 class StepBuilder:
@@ -530,8 +597,9 @@ class StepBuilder:
             grads = [None if g is None else g * inv for g in grads]
         return total, metrics, grads
 
-    def _autocast(self, x: torch.Tensor, enabled: bool):
-        return torch.autocast(x.device.type, dtype=torch.bfloat16,
+    def _autocast(self, x, enabled: bool):
+        device = x.parts[0].device if isinstance(x, Rows) else x.device
+        return torch.autocast(device.type, dtype=torch.bfloat16,
                               enabled=enabled)
 
     def _p_gan_loss(self, pred, target_is_real: bool, draws: Draws,
@@ -560,7 +628,7 @@ class StepBuilder:
         x = batch["x"]
         bf16 = cfg.bf16 and not eval_mode
         if bf16:
-            x = x.to(torch.bfloat16)
+            x = each(lambda t: t.to(torch.bfloat16), x)
         metrics: Dict[str, torch.Tensor] = {}
         total = 0.0
 
@@ -583,21 +651,21 @@ class StepBuilder:
                                 cond=cond)
 
         def disc(method):
-            return lambda e: method(e.float(), update_sn=update_sn)
+            return lambda e: method(L.upcast(e), update_sn=update_sn)
 
         if (for_ == "G" and "d" in batch and d_pred is not None
                 and (domain == "s" or "d" in cfg.pseudo_tasks)
                 and cfg.lam_d_main != 0):
-            pred = d_pred.float()
+            pred = L.upcast(d_pred)
             if cfg.d_classify:
                 target = batch["d"]
                 if target.ndim == 4:  # (N, 1, H, W) bucket indices
                     target = target[:, 0]
                 dl = L.cross_entropy(pred, target.long())
             elif cfg.d_loss == "dada":
-                dl = L.dada_depth_loss(pred, batch["d"].float())
+                dl = L.dada_depth_loss(pred, L.upcast(batch["d"]))
             else:
-                dl = L.sigm_loss(pred, batch["d"].float(),
+                dl = L.sigm_loss(pred, L.upcast(batch["d"]),
                                  gmweight=cfg.lam_d_gml)
             dl = dl * cfg.lam_d_main
             if domain != "s":
@@ -606,13 +674,14 @@ class StepBuilder:
             metrics[f"d_{domain}"] = dl
 
         if s_pred is not None:
-            softmax_s = torch.softmax(s_pred.float(), dim=1)
+            softmax_s = each(lambda t: torch.softmax(t, dim=1),
+                             L.upcast(s_pred))
             if for_ == "G":
                 if "s" in batch and (domain == "s" or "s" in cfg.pseudo_tasks):
                     w = (cfg.lam_s_crossent if domain == "s"
                          else cfg.lam_s_crossent_pseudo)
                     if w != 0:
-                        sl = L.cross_entropy(s_pred.float(), batch["s"]) * w
+                        sl = L.cross_entropy(L.upcast(s_pred), batch["s"]) * w
                         if domain != "s":
                             sl = sl * pseudo_scale
                         total = total + sl
@@ -623,11 +692,11 @@ class StepBuilder:
                     total = total + ml
                     metrics["s_minent"] = ml
             if cfg.s_use_advent:
-                dp = (d_pred.detach().float()
+                dp = (L.upcast(_detach(d_pred))
                       if cfg.s_use_dada and d_pred is not None else None)
                 if for_ == "D":
                     label = cfg.label_s if domain == "s" else cfg.label_r
-                    weight, sm = cfg.adv_main, softmax_s.detach()
+                    weight, sm = cfg.adv_main, _detach(softmax_s)
                 else:
                     label, weight, sm = cfg.label_s, cfg.lam_s_advent, softmax_s
                 if (for_ == "D" or domain == "r") and weight != 0:
@@ -640,16 +709,16 @@ class StepBuilder:
                         gp_inputs["s"] = s_pred.detach().float()
 
         if logits is not None:
-            logits = logits.float()
-            prob1 = torch.sigmoid(logits)
-            prob = torch.cat([prob1, 1.0 - prob1], dim=1)
+            logits = L.upcast(logits)
+            prob1 = each(torch.sigmoid, logits)
+            prob = each(lambda p: torch.cat([p, 1.0 - p], dim=1), prob1)
             if for_ == "G":
                 if cfg.lam_m_tv != 0:
                     tl = L.tv_loss(prob1) * cfg.lam_m_tv
                     total = total + tl
                     metrics[f"m_tv_{domain}"] = tl
                 if domain == "s" and "m" in batch and cfg.lam_m_bce != 0:
-                    bl = L.bce_with_logits(logits, batch["m"].float()) \
+                    bl = L.bce_with_logits(logits, L.upcast(batch["m"])) \
                         * cfg.lam_m_bce
                     total = total + bl
                     metrics["m_bce"] = bl
@@ -657,7 +726,7 @@ class StepBuilder:
                     if (cfg.m_use_ground_intersection and "m" in batch
                             and cfg.lam_m_gi != 0):
                         gl = L.ground_intersection_loss(
-                            prob1, batch["m"].float()) * cfg.lam_m_gi
+                            prob1, L.upcast(batch["m"])) * cfg.lam_m_gi
                         total = total + gl
                         metrics["m_gi"] = gl
                     if cfg.use_pl4m and cfg.lam_m_pl4m != 0:
@@ -675,11 +744,13 @@ class StepBuilder:
             if cfg.m_use_advent:
                 dp = None
                 if cfg.m_use_dada and d_pred is not None:
-                    dp = resize(d_pred.detach().float(), x.shape[-2:],
-                                "nearest")
+                    dp = L.upcast(_detach(d_pred))
+                    dp = (spatial.resize(dp, (x.h, x.w), "nearest")
+                          if isinstance(dp, Rows)
+                          else resize(dp, x.shape[-2:], "nearest"))
                 if for_ == "D":
                     label = cfg.label_s if domain == "s" else cfg.label_r
-                    pr = prob.detach()
+                    pr = _detach(prob)
                 else:
                     label, pr = cfg.label_s, prob
                 if (for_ == "D" or domain == "r") and cfg.adv_main != 0:
@@ -725,13 +796,13 @@ class StepBuilder:
 
     def _paint(self, G, batch, update_sn: bool, bf16: bool,
                z: Optional[torch.Tensor] = None):
-        """(x, m, fake) in f32; the painter runs in bf16 under ``bf16``, on
-        ``z`` where it takes one."""
-        dt = torch.bfloat16 if bf16 else torch.float32
-        x, m = batch["x"].to(dt), batch["m"].to(dt)
+        """(x, m, fake) in f32 (float64 kept); the painter runs in bf16
+        under ``bf16``, on ``z`` where it takes one."""
+        x, m = (each(lambda t: t.to(torch.bfloat16), batch[k]) if bf16
+                else L.upcast(batch[k]) for k in ("x", "m"))
         with self._autocast(x, bf16):
             fake = G.paint(m, x, update_sn=update_sn, z=z)
-        return x.float(), m.float(), fake.float()
+        return L.upcast(x), L.upcast(m), L.upcast(fake)
 
     def _augment(self, fake, x, aug: Optional[AugDraws]):
         """DiffAugment of (fake, x) on the step's draws, where it is on."""
@@ -756,7 +827,7 @@ class StepBuilder:
             total = total + vl
             metrics["p_vgg"] = vl
         if cfg.lam_p_tv != 0:
-            tl = L.tv_loss(fake * m) * cfg.lam_p_tv
+            tl = L.tv_loss(each(torch.mul, fake, m)) * cfg.lam_p_tv
             total = total + tl
             metrics["p_tv"] = tl
         if cfg.lam_p_context != 0:
@@ -778,9 +849,7 @@ class StepBuilder:
                   + self._p_gan_loss(fake_l, True, draws, False)) \
                 * cfg.lam_p_gan
         else:
-            real_fake = torch.cat([torch.cat([m, x], dim=1),
-                                   torch.cat([m, fake], dim=1)], dim=0)
-            real_d, fake_d = divide_pred(D.disc_p(real_fake,
+            real_d, fake_d = divide_pred(D.disc_p(_real_fake(m, x, fake),
                                                   update_sn=update_sn))
             gl = self._p_gan_loss(fake_d, True, draws, for_discriminator=False)
         total = total + gl
@@ -810,30 +879,39 @@ class StepBuilder:
             return (gan(fdg, False, draws, True) + gan(rdg, True, draws, True)
                     + gan(fdl, False, draws, True)
                     + gan(rdl, True, draws, True))
-        real_fake = torch.cat([torch.cat([m, x], dim=1),
-                               torch.cat([m, fake], dim=1)], dim=0)
-        real_d, fake_d = divide_pred(D.disc_p(real_fake, update_sn=True))
+        real_d, fake_d = divide_pred(D.disc_p(_real_fake(m, x, fake),
+                                              update_sn=True))
         return gan(fake_d, False, draws, True) + gan(real_d, True, draws, True)
 
     # ------------------------------------------------------------------
     # the steps
     # ------------------------------------------------------------------
+    def _rows(self, micro: List[Batch], devices) -> List[Batch]:
+        """The micro-batches, each split by rows over ``devices`` where
+        there are several (the options checked first)."""
+        if devices is None or len(devices) < 2:
+            return micro
+        check_row_sharded_step(self.opts, self.vgg is not None)
+        return [shard_rows(mb, devices) for mb in micro]
+
     @distributed.sharded_batch()
     def g_step(self, state: TrainState, batch: Batch, lr_scale: float = 1.0,
                pseudo_scale: float = 1.0, draws: Optional[Draws] = None,
                z: Optional[torch.Tensor] = None,
-               aug: Optional[AugDraws] = None
+               aug: Optional[AugDraws] = None, devices=None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """update_G: the masker losses over r and s, then the painter's over
         rf (each per-domain function rematerialized under ``tpu.remat``),
         averaged over ``train.grad_accumulation`` micro-batches; one
         optimizer call over G's parameters (on the gradients summed over
-        the ranks of a data-parallel step)."""
+        the ranks of a data-parallel step). ``devices``: the row shards'
+        devices of a row-sharded step."""
         cfg = self.cfg
         draws = self.draw(state) if draws is None else draws
         micro = split_micro(batch, self.grad_accumulation)
         z = self.painter_z(state, micro[0], z)
         aug = self.aug_draws(state, micro[0], aug)
+        micro = self._rows(micro, devices)
         G, D = state.G, state.D
 
         def loss_fn(mb):
@@ -874,19 +952,21 @@ class StepBuilder:
     def d_step(self, state: TrainState, batch: Batch, lr_scale: float = 1.0,
                draws: Optional[Draws] = None,
                z: Optional[torch.Tensor] = None,
-               aug: Optional[AugDraws] = None
+               aug: Optional[AugDraws] = None, devices=None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """update_D: the painter D on rf and the ADVENT Ds on r and s, in
         the batch's order (each per-domain function rematerialized under
         ``tpu.remat_d``), averaged over ``train.grad_accumulation``
         micro-batches; one optimizer call over D's parameters, WGAN
         clipping of the ADVENT Ds, then the global step advances (on the
-        gradients summed over the ranks of a data-parallel step)."""
+        gradients summed over the ranks of a data-parallel step).
+        ``devices``: the row shards' devices of a row-sharded step."""
         cfg = self.cfg
         draws = self.draw(state) if draws is None else draws
         micro = split_micro(batch, self.grad_accumulation)
         z = self.painter_z(state, micro[0], z)
         aug = self.aug_draws(state, micro[0], aug)
+        micro = self._rows(micro, devices)
         G, D = state.G, state.D
 
         def loss_fn(mb):
@@ -932,14 +1012,14 @@ class StepBuilder:
     def train_step(self, state: TrainState, batch: Batch,
                    g_lr_scale: float = 1.0, d_lr_scale: float = 1.0,
                    pseudo_scale: float = 1.0, draws=(None, None),
-                   aug=(None, None)
+                   aug=(None, None), devices=None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """``g_step`` then ``d_step``; ``draws`` and ``aug``: (G's, D's) or
-        None each."""
+        None each; ``devices``: the row shards' devices."""
         state, gm = self.g_step(state, batch, g_lr_scale, pseudo_scale,
-                                draws[0], aug=aug[0])
+                                draws[0], aug=aug[0], devices=devices)
         state, dm = self.d_step(state, batch, d_lr_scale, draws[1],
-                                aug=aug[1])
+                                aug=aug[1], devices=devices)
         return state, {**gm, **dm}
 
     @torch.no_grad()

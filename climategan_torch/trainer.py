@@ -18,8 +18,9 @@ forward or a kernel: the evaluation and its panels run ``spade_cond`` and
 logger (comet, the PNG writer) is skipped when absent. With
 ``train.fid.enable`` the evaluation also logs the painter's FID
 (``compute_val_fid``). Options that are not ported raise a ``ValueError``
-at ``setup`` naming their ROADMAP item: spatial shards (A.11b-2); an orbax
-run dir raises where it would be loaded (A.11d).
+at ``setup`` naming their ROADMAP item: under row shards KITTI
+pretraining and the step options of ``check_row_sharded_step`` (A.11b-2b);
+an orbax run dir raises where it would be loaded (A.11d).
 
 Data parallel (one process per rank, ``python -m torch.distributed.run``):
 the data axis is the process group (``tpu.mesh.data`` is -1 or its size,
@@ -30,6 +31,17 @@ decode only those); rank 0 alone runs the evaluation, the panels, FID and
 the logger, and writes the checkpoints (``save_on_main``, which checks
 that every rank holds the state it wrote), with barriers around them;
 every rank resumes from the same file.
+
+Row-sharded (``tpu.spatial_shards`` k > 1): each step splits every image's
+rows over k devices of the rank (``StepBuilder.train_step(devices=)``),
+by the JAX trainer's rule (``mesh.spatial_devices``: rank r of a node owns
+cards [r k, (r + 1) k), so ``torch.distributed.run --nproc_per_node
+<cards / k>`` trains data x space; the CPU holds all k shards). Where k
+does not divide the rank's cards the trainer prints JAX's message and
+trains unsharded. The models, the state and the
+checkpoint are one set on the first shard's device, so a sharded run
+resumes unsharded and the other way round; the evaluation, the panels and
+FID run unsharded there, as JAX's ``run_evaluation`` does.
 
 Each epoch adds one record to ``train.jsonl``: the steps, the epoch's
 seconds, the seconds spent waiting on the loader and each step's host
@@ -55,8 +67,14 @@ from climategan_torch.models.generator import GenConfig, OmniGenerator
 from climategan_torch.ops.interpolate import resize
 from climategan_torch.optim import make_lr_schedule
 from climategan_torch.parallel import distributed
-from climategan_torch.parallel.mesh import replicate
-from climategan_torch.train_step import StepBuilder
+from climategan_torch.parallel.mesh import (
+    fallback_message,
+    owned_cards,
+    replicate,
+    spatial_devices,
+    spatial_shards,
+)
+from climategan_torch.train_step import StepBuilder, check_row_sharded_step
 from climategan_torch.utils.checkpoint import (
     checkpoint_dict,
     load_partial_state,
@@ -70,26 +88,41 @@ from climategan_torch.utils.opts import load_opts
 BOTH = ("masker", "painter")
 
 
+def _vgg_wanted(opts) -> bool:
+    """Whether the trainer would build a VGG for the perceptual loss
+    (``Trainer._maybe_vgg``)."""
+    if float(opts.train.lambdas.G.p.vgg) == 0 or "p" not in opts.tasks:
+        return False
+    path = opts.get("vgg_weights") or None
+    return bool(path and Path(str(path)).exists()) or bool(
+        opts.train.get("allow_random_vgg", False))
+
+
 def refuse_unported_trainer(opts) -> None:
     """Raises a ``ValueError`` naming its ROADMAP item for each trainer
-    option this port does not have, and for a data axis that the process
-    group cannot give (``check_data_axis``)."""
-    tpu = opts.get("tpu", {}) or {}
-    if int(tpu.get("spatial_shards", 1) or 1) > 1:
-        raise ValueError("tpu.spatial_shards > 1: row-sharded training is "
-                         "not ported yet (ROADMAP A.11b-2)")
+    option this port does not have (under row shards: KITTI pretraining
+    and ``check_row_sharded_step``'s step options, A.11b-2b; another
+    generator configuration raises ``check_rows``'s A.11b-3), and for a
+    mesh that the process group cannot give (``check_data_axis``)."""
+    if spatial_shards(opts) > 1:
+        if opts.train.kitti.get("pretrain"):
+            raise ValueError("row-sharded training (tpu.spatial_shards > 1) "
+                             "does not take train.kitti.pretrain yet "
+                             "(ROADMAP A.11b-2b)")
+        check_row_sharded_step(opts, _vgg_wanted(opts))
     check_data_axis(opts, distributed.world())
 
 
 def check_data_axis(opts, world: int) -> None:
     """The data axis is the process group's ``world`` ranks: ``tpu.mesh``'s
-    ``data`` must be -1 (all of them) or ``world``, any other axis -1 or 1
-    (row-sharded training is ROADMAP A.11b-2), and several ranks must
-    split each per-domain batch into ``train.grad_accumulation``
-    micro-batches. JAX leaves devices idle where the count does not divide
-    the batch; an idle rank here would hang the others' collectives, so it
-    raises."""
+    ``data`` must be -1 (all of them) or ``world``, its ``space`` -1 or
+    ``tpu.spatial_shards`` (which the trainer reads, as JAX's does), any
+    other axis -1 or 1, and several ranks must split each per-domain batch
+    into ``train.grad_accumulation`` micro-batches. JAX leaves devices
+    idle where the count does not divide the batch; an idle rank here
+    would hang the others' collectives, so it raises."""
     mesh = (opts.get("tpu", {}) or {}).get("mesh", {}) or {}
+    k = spatial_shards(opts)
     for axis, v in mesh.items():
         if axis == "data" and int(v) not in (-1, world):
             raise ValueError(
@@ -97,10 +130,13 @@ def check_data_axis(opts, world: int) -> None:
                 f"whose world size is {world}; start {int(v)} ranks (python "
                 f"-m torch.distributed.run --nproc_per_node {int(v)} -m "
                 "climategan_torch.train ...) or set it to -1")
-        if axis != "data" and int(v) not in (-1, 1):
-            raise ValueError(f"tpu.mesh.{axis}={int(v)}: only the data axis "
-                             "is ported (row-sharded training: ROADMAP "
-                             "A.11b-2)")
+        if axis == "space" and int(v) not in (-1, k):
+            raise ValueError(f"tpu.mesh.space={int(v)} disagrees with "
+                             f"tpu.spatial_shards={k}: the row shards are "
+                             "tpu.spatial_shards")
+        if axis not in ("data", "space") and int(v) not in (-1, 1):
+            raise ValueError(f"tpu.mesh.{axis}={int(v)}: only the data and "
+                             "space axes are ported")
     micro = int(opts.train.get("grad_accumulation", 1) or 1)
     sizes = {"data.loaders.batch_size":
              int(opts.data.loaders.get("batch_size", 4))}
@@ -127,6 +163,7 @@ class Trainer:
     def __init__(self, opts, comet_exp=None, device="cuda"):
         self.opts = opts
         self.device = resolve_device(device)
+        self.shard_devices = None  # the row shards' devices, set by setup
         self.logger = Logger(opts, comet_exp)
         self.is_setup = False
         self.loaders = None
@@ -162,6 +199,7 @@ class Trainer:
         )
         from climategan_torch.utils.summary import write_architecture
 
+        self._place_shards()
         self.loaders = get_all_loaders(self.opts)
         self.builder = StepBuilder(self.opts, vgg=self._maybe_vgg(seed))
         self._sample_batch()
@@ -174,6 +212,19 @@ class Trainer:
                                self.state.D)
         self.is_setup = True
         return self
+
+    def _place_shards(self) -> None:
+        """The row shards' devices (``tpu.spatial_shards`` k > 1) by the JAX
+        rule over the rank's cards, or none with JAX's message where k does
+        not divide them. The state lives on the first shard's device."""
+        k = spatial_shards(self.opts)
+        local = distributed.local_rank()
+        self.shard_devices = spatial_devices(self.device, k, local)
+        if self.shard_devices is not None:
+            self.device = self.shard_devices[0]
+        elif k > 1:
+            self.logger.print(fallback_message(k, owned_cards(
+                k, local, torch.cuda.device_count())))
 
     def _inference_resume(self):
         """The generator state dict of the load paths, pm > (m and/or p) >
@@ -316,8 +367,10 @@ class Trainer:
                 break
             batch = {item["domain"]: to_step_batch(item["data"], self.device)
                      for item in tup}
+            rows = ({} if self.shard_devices is None
+                    else {"devices": self.shard_devices})
             self.state, metrics = self.builder.train_step(
-                self.state, batch, g_scale, d_scale, p_scale)
+                self.state, batch, g_scale, d_scale, p_scale, **rows)
             self.logger.log_step(self.global_step, metrics)
             waits.append(t_got - t_wait)
             steps.append(time.perf_counter() - t_wait)

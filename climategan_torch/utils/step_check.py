@@ -94,8 +94,10 @@ def first_moments(module: nn.Module, opt_state) -> Dict[str, torch.Tensor]:
                                       opt_state["mu"])}
 
 
-def _cpu(t: torch.Tensor) -> torch.Tensor:
-    return t.detach().float().cpu()
+def _f32(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` in f32 on ``device`` (the held module's), where the bars are
+    computed: a reference on another device is copied once a leaf."""
+    return t.detach().to(device=device, dtype=torch.float32)
 
 
 def hold_state(got: nn.Module, want: Mapping[str, torch.Tensor],
@@ -114,33 +116,35 @@ def hold_state(got: nn.Module, want: Mapping[str, torch.Tensor],
     the share of values off counts the held ones. Returns a summary."""
     sd = got.state_dict()
     params = dict(got.named_parameters())
+    dev = next(iter(sd.values())).device
     if stats:
         for k, v in sd.items():
             if k.rsplit(".", 1)[-1] in STATS:
-                err = (_cpu(v) - _cpu(want[k])).abs().max().item()
+                err = (_f32(v, dev) - _f32(want[k], dev)).abs().max().item()
                 if err > 1e-5:
                     raise AssertionError(f"{what} {k}: {err:.3g} > 1e-5")
     if lr is None:
         for k in params:
-            if not torch.equal(_cpu(sd[k]), _cpu(want[k])):
+            if not torch.equal(_f32(sd[k], dev), _f32(want[k], dev)):
                 raise AssertionError(f"{what} {k}: changed by a step that "
                                      "does not update it")
         return f"{what}: parameters unchanged"
-    floor = NOISE_FLOOR * max(_cpu(want_mu[k]).abs().max().item()
+    floor = NOISE_FLOOR * max(want_mu[k].detach().abs().max().item()
                               for k in params)
     if held is not None:
         params = {k: v for k, v in params.items() if held(k)}
     off = noise = total = noise_leaves = 0
     worst_noise = 0.0
     for k in params:
-        ref_m = _cpu(want_mu[k]).abs()
+        ref_m = _f32(want_mu[k], dev).abs()
         leaf_max = ref_m.max().item()
-        d = (_cpu(sd[k]) - _cpu(want[k])).abs()
+        d = (_f32(sd[k], dev) - _f32(want[k], dev)).abs()
         if leaf_max <= floor:
             is_noise = torch.ones_like(d, dtype=torch.bool)
             noise_leaves += 1
         else:
-            m_err = (_cpu(got_mu[k]) - _cpu(want_mu[k])).abs().max().item()
+            m_err = (_f32(got_mu[k], dev)
+                     - _f32(want_mu[k], dev)).abs().max().item()
             if m_err > 1e-3 * leaf_max:
                 raise AssertionError(
                     f"{what} {k}: first moment off by {m_err:.3g}, more "

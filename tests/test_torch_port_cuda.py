@@ -910,3 +910,84 @@ def test_spatial_forward_on_a_repeated_card_matches_the_unsharded():
               f"{100 * (diff == 0).float().mean().item():.4f}% equal")
         assert (diff <= 1).float().mean() >= 0.999, key
     torch.testing.assert_close(got["mask"], want["mask"], rtol=0, atol=1e-5)
+
+
+# ---- row-sharded training (tpu.spatial_shards) ----------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_masked_blend_per_shard_forward_and_backward(dtype):
+    """The paste of a row-sharded step: ``MaskedBlend`` on each shard of
+    rows (7 rows over 3 shards: 2, 2, 3) of an NCHW map through
+    ``generator.paste_rows``, one kernel launch a shard, against
+    ``masked_blend_plain`` on the whole map under autograd: the outputs and
+    the three gradients (f32 within 1e-6, bf16 one ulp of the largest,
+    float64, which the kernel computes in float64, within 1e-12)."""
+    from climategan_torch.models.generator import paste_rows
+    from climategan_torch.parallel import spatial
+
+    dev = _device()
+    g = torch.Generator(device=dev).manual_seed(5)
+    ins = [torch.rand(2, c, 7, 33, device=dev, generator=g).to(dtype)
+           for c in (3, 3, 1)]
+    up = torch.randn(2, 3, 7, 33, device=dev, generator=g).to(
+        torch.promote_types(dtype, torch.float32))
+    want_in = [t.clone().requires_grad_() for t in ins]
+    got_in = [t.clone().requires_grad_() for t in ins]
+    nhwc = [t.permute(0, 2, 3, 1) for t in want_in]
+    want = masked_blend_plain(*nhwc).permute(0, 3, 1, 2)
+    reset_launches()
+    got = paste_rows(*(spatial.split_rows(t, [dev] * 3) for t in got_in))
+    assert launches["masked_blend"] == 3
+    got = got.gather(dev)
+    want_g = torch.autograd.grad((want.float() * up).sum(), want_in)
+    got_g = torch.autograd.grad((got.float() * up).sum(), got_in)
+    for a, b in zip([got, *got_g], [want, *want_g]):
+        bar = {torch.float32: 1e-6, torch.float64: 1e-12}.get(
+            dtype, b.float().abs().max().item() * 2.0 ** -8)
+        assert (a.double() - b.double()).abs().max().item() <= bar
+
+
+def test_tiny_row_sharded_step_on_the_card_matches_the_cpu():
+    """g_step and d_step over ["cuda:0"] * 2 (the tiny step without a
+    bicubic resize, TINY_DP_OVERRIDES, deterministic algorithms) from the
+    seed-0 state against the CPU's row-sharded steps over ["cpu"] * 2:
+    losses within 1e-4, the stepped model held by ``hold_state``, the
+    other's statistics and u/v; two masked_blend launches a step."""
+    import copy
+
+    from climategan_torch.utils.step_check import first_moments, hold_state
+
+    dev = _device()
+    builder, batch = _tiny_dp_train()
+    cpu, jobs = _dp_jobs(builder)
+    for name, g_sd, d_sd, kwargs in jobs:
+        states = {}
+        for where in ("cpu", dev):
+            G, D = copy.deepcopy(cpu.G), copy.deepcopy(cpu.D)
+            G.load_state_dict(g_sd)
+            D.load_state_dict(d_sd)
+            state = builder.state_for(G.to(where), D.to(where))
+            reset_launches()
+            on = {d: {k: v.to(where) for k, v in b.items()}
+                  for d, b in batch.items()}
+            states[where] = _deterministic(lambda: getattr(builder, name)(
+                state, on, devices=[where] * 2, **kwargs))
+            if where == dev:
+                assert launches["masked_blend"] == 2
+        (got, got_m), (want, want_m) = states[dev], states["cpu"]
+        for k, v in want_m.items():
+            assert abs(float(got_m[k]) - float(v)) <= \
+                1e-4 * abs(float(v)) + 1e-9, (name, k)
+        net = "G" if name == "g_step" else "D"
+        opt = "g_opt" if net == "G" else "d_opt"
+        lr = builder.g_lr if net == "G" else builder.d_lr
+        print(hold_state(getattr(got, net),
+                         getattr(want, net).state_dict(), lr,
+                         first_moments(getattr(got, net), getattr(got, opt)),
+                         first_moments(getattr(want, net),
+                                       getattr(want, opt)),
+                         what=f"{name} {net}"))
+        other = "D" if net == "G" else "G"
+        hold_state(getattr(got, other), getattr(want, other).state_dict(),
+                   what=f"{name} {other}")

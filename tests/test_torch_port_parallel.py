@@ -206,7 +206,8 @@ def test_the_data_axis_must_be_the_group_and_divide_the_batch():
     with pytest.raises(ValueError, match="world size is 4"):
         check_data_axis(opts, 4)
     opts.tpu.mesh = {"data": -1, "space": 2}
-    with pytest.raises(ValueError, match="ROADMAP A.11b-2"):
+    with pytest.raises(ValueError, match="disagrees with "
+                                         "tpu.spatial_shards=1"):
         check_data_axis(opts, 1)
 
 

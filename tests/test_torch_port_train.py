@@ -41,6 +41,7 @@ from climategan_torch.utils.convert import (
 )
 from climategan_torch.utils.opts import load_opts
 from climategan_torch.utils.step_check import first_moments, hold_state
+from tests.test_torch_port_step_options import seeded_batch
 from tests.test_train_step import _batch
 from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
     gan_draws,
@@ -62,7 +63,8 @@ def _split(variables):
 @pytest.fixture(scope="module")
 def run():
     """The JAX states before, between and after the two steps, their
-    metrics, the draws, the batch and the port's opts."""
+    metrics, the draws, the batch, the port's opts and ``steps``: the
+    compiled steps from the same state on another batch."""
     jopts = tiny_opts(SIZE)
     jopts.train.bf16 = False
     jopts.tpu.painter_s2d = False
@@ -88,13 +90,18 @@ def run():
         compiled = jax.jit(both).lower(state0, batch).compile(
             compiler_options={"xla_backend_optimization_level": 0,
                               "xla_llvm_disable_expensive_passes": True})
-        out = jax.tree_util.tree_map(np.asarray, compiled(state0, batch))
+
+        def steps(batch):
+            return jax.tree_util.tree_map(np.asarray, compiled(state0, batch))
+
+        out = steps(batch)
     finally:
         jax_norms.FUSED_REFLECT = prev
     state1, gm, state2, dm, val = out
     topts = load_opts(default=jopts.to_dict())
     return dict(
         topts=topts, batch=batch, states=(state0, state1, state2),
+        steps=steps,
         metrics=(gm, dm, val),
         eval_draws=gan_draws(jax.random.PRNGKey(0), jb.cfg.soft_shift,
                              jb.cfg.flip_prob),
@@ -188,6 +195,36 @@ def test_train_step_matches_jax(run):
 ABOVE_THE_KINK = ("encoder.layer4.", "decoders.", "painter.")
 
 
+def test_two_shard_train_step_matches_jax(run):
+    """Row-sharded (ROADMAP A.11b-2): the port's ``train_step`` with each
+    image's rows over ["cpu"] * 2 (the os8 maps 2 rows a shard, the
+    painter's first map one row on the second shard) against JAX's
+    ``train_step`` from the same state at ``test_train_step_matches_jax``'s
+    bars, all of G and D held. It runs on ``seeded_batch(2, 2)``: on the
+    fixture's batch the shards' batch norms, whose statistics come from
+    float64 sums over the shards as the data-parallel ranks' do, put a
+    layer3.0 pre-activation on the other side of its ReLU kink and
+    encoder.conv1's first moment 1.4e-3 of its largest from JAX's
+    (ROADMAP C)."""
+    batch = seeded_batch(2, 2)
+    _, gm, state2, dm, _ = run["steps"](batch)
+    G, D = _models(run["topts"], run["states"][0])
+    builder = StepBuilder(run["topts"])
+    state, metrics = builder.train_step(builder.state_for(G, D),
+                                        port_batch(batch),
+                                        draws=run["draws"],
+                                        devices=["cpu"] * 2)
+    _check_metrics(metrics, {**gm, **dm})
+    want_g, want_d = _models(run["topts"], state2)
+    g_mu, d_mu = _moments(run["topts"], state2)
+    print(hold_state(G, want_g.state_dict(), run["lr"][0],
+                     first_moments(G, state.g_opt), g_mu, stats=False,
+                     what="2 shards: G"))
+    print(hold_state(D, want_d.state_dict(), run["lr"][1],
+                     first_moments(D, state.d_opt), d_mu, stats=False,
+                     what="2 shards: D"))
+
+
 def test_two_gloo_ranks_step_as_jax_does_on_the_global_batch(run):
     """Data parallel: two gloo ranks on the CPU, one row of each domain per
     rank, take ``g_step`` and ``d_step`` from JAX's states before each, on
@@ -201,38 +238,48 @@ def test_two_gloo_ranks_step_as_jax_does_on_the_global_batch(run):
     -6.0e-7 on two ranks, whose convolutions run on one row (oneDNN's f32
     rounding depends on the batch size). The kink moves the gradients of
     the encoder below layer4 by up to 5.5% of a leaf's largest, so
-    ``g_step``'s parameters are held above it (ROADMAP C)."""
+    ``g_step``'s parameters are held above it (ROADMAP C). The same two
+    ranks also take each step hybrid (ROADMAP A.11b-2): each rank's rows
+    split again over two row shards, held to JAX's steps on the global
+    batch at the same bars."""
     jobs = []
     for i, name in enumerate(("g_step", "d_step")):
         G, D = _models(run["topts"], run["states"][i])
         jobs.append((name, G.state_dict(), D.state_dict(),
                      {"draws": run["draws"][i]}))
+        # hybrid: each rank's rows split again over two row shards
+        jobs.append((name, G.state_dict(), D.state_dict(),
+                     {"draws": run["draws"][i], "devices": ["cpu", "cpu"]}))
     got = run_ranks("tests.torch_port_ranks:steps", 2,
                     {"opts": run["topts"], "batch": port_batch(run["batch"]),
                      "jobs": jobs},
                     devices=["cpu", "cpu"], backend="gloo", timeout=120)
     assert [r["digest"] for r in got[1]] == [r["digest"] for r in got[0]]
-    g_res, d_res = got[0]
+    g_res, hybrid_g, d_res, hybrid_d = got[0]
     for i, res in enumerate(got[0]):
-        _check_metrics(res["metrics"], run["metrics"][i])
+        _check_metrics(res["metrics"], run["metrics"][i // 2])
     want_g1, want_d1 = _models(run["topts"], run["states"][1])
     want_g2, want_d2 = _models(run["topts"], run["states"][2])
     g_mu = _moments(run["topts"], run["states"][1])[0]
     d_mu = _moments(run["topts"], run["states"][2])[1]
 
     G, D = _models(run["topts"], run["states"][1])
-    G.load_state_dict(d_res["G"])
-    D.load_state_dict(d_res["D"])
-    print(hold_state(D, want_d2.state_dict(), run["lr"][1], d_res["d_mu"],
-                     d_mu, what="d_step on 2 ranks: D"))
-    hold_state(G, want_g2.state_dict(), what="d_step on 2 ranks: G")
+    for res, what in ((d_res, "d_step on 2 ranks"),
+                      (hybrid_d, "d_step on 2 ranks x 2 shards")):
+        G.load_state_dict(res["G"])
+        D.load_state_dict(res["D"])
+        print(hold_state(D, want_d2.state_dict(), run["lr"][1], res["d_mu"],
+                         d_mu, what=f"{what}: D"))
+        hold_state(G, want_g2.state_dict(), what=f"{what}: G")
 
-    G.load_state_dict(g_res["G"])
-    D.load_state_dict(g_res["D"])
-    hold_state(D, want_d1.state_dict(), what="g_step on 2 ranks: D")
-    print(hold_state(G, want_g1.state_dict(), run["lr"][0], g_res["g_mu"],
-                     g_mu, what="g_step on 2 ranks: G above the kink",
-                     held=lambda k: k.startswith(ABOVE_THE_KINK)))
+    for res, what in ((g_res, "g_step on 2 ranks"),
+                      (hybrid_g, "g_step on 2 ranks x 2 shards")):
+        G.load_state_dict(res["G"])
+        D.load_state_dict(res["D"])
+        hold_state(D, want_d1.state_dict(), what=f"{what}: D")
+        print(hold_state(G, want_g1.state_dict(), run["lr"][0], res["g_mu"],
+                         g_mu, what=f"{what}: G above the kink",
+                         held=lambda k: k.startswith(ABOVE_THE_KINK)))
 
 
 def test_hold_state_catches_a_leaf_stepped_the_wrong_way(run):
