@@ -100,10 +100,11 @@ Phases, any failure exits non-zero:
      checkpoints/latest_ckpt.pth, latest.json and opts.json written; then
      `climategan_torch.train.main` in this process (no process group) with
      args.resume=true train.epochs=2 tpu.spatial_shards=2, which the one
-     card cannot give: the JAX trainer's fallback message printed, the
+     card cannot give, on the first 2 samples of each list
+     (data.max_samples=2): the JAX trainer's fallback message printed, the
      epoch unsharded, resumed from epoch 0 with a state
-     whose sha256 (checkpoint.state_digest) equals the epoch-0 file's, 4
-     more steps, the newest checkpoint at epoch 1, step 8; then
+     whose sha256 (checkpoint.state_digest) equals the epoch-0 file's, 1
+     more step, the newest checkpoint at epoch 1, step 5; then
      apply_events main() with -r <run dir> on 2 photos (three uint8
      640x640x3 PNGs each) and Trainer.resume_from_path(run dir).infer_all,
      each with the main path's launches {18, 1, 1, 1, 1}; then one step at
@@ -174,7 +175,7 @@ Phases, any failure exits non-zero:
      algorithms on both sides: g_step and d_step, each from the seed-0
      state, held by hold_state against the card's one-process steps on the
      global batch, losses within 1e-4, the ranks' states equal (the same
-     launch also takes phase 13.d's hybrid steps); (c) two
+     launch also takes phase 13.d's hybrid steps, then (c)'s); (c) two
      gloo ranks at full width, one image per rank per domain, in f32
      (train.bf16 false): every loss of (a)'s two steps within 1e-2
      relative of the one-process steps', the ranks' states equal, the
@@ -228,15 +229,34 @@ Phases, any failure exits non-zero:
      against masked_blend_plain on the same shard at phase 2's bars; (d)
      in phase 11.b's launch, g_step and d_step with each gloo rank's rows
      over two row shards of cuda:0 (tiny, TINY_DP_OVERRIDES), held to the
-     one-process steps on the global batch as 11.b holds its steps.
+     one-process steps on the global batch as 11.b holds its steps; (e)
+     every step option at once on rows (the local painter D, pl4m,
+     WGAN_gp on m and s, diff-aug with color, translation and cutout, a
+     random VGG as under train.allow_random_vgg): (0) the painter D's 3x3
+     stride-2 average pool on a channels-last float64 input (the paste's
+     layout): the port's input gradient within 1e-12 of a contiguous
+     input's (PyTorch's own pool's error printed); (1) at tiny_opts(32)'s
+     sizes in float64 with remat and remat_d under small_convs, g_step and
+     d_step on a batch of 2 per domain and on a KITTI pretraining batch
+     (domain s alone) over k = 2 and 4 against the unsharded steps, every
+     loss within TINY_OPTION_BAR relative and both models held by
+     hold_state; (2) at full width with remat and remat_d, the f32 losses
+     over 2 shards within SPATIAL_TRAIN_BAR relative of the unsharded
+     ones; the bf16 train_step's p50 ms over SPATIAL_TRAIN_TIMED steps and
+     peak memory at k = 1 and 2, with and without remat, launch counts set
+     to 0 before a step and read after (2-shard steps launch twice the
+     unsharded step's masked_blend, no spade_cond), and every masked_blend
+     launch of one 2-shard remat step held against masked_blend_plain at
+     phase 2's bars.
 The last three lines are the card's name and power limit, the kernels JSON
 line (each kernel's launches per configuration's path; spade_cond's with
 the SPADE masker's numbers; ``ddp_train_launches``: per rank step of
 phase 11; phase 10's launches per pl4m and accumulated
 step and per FID evaluation; ``spatial_launches``: per row-sharded forward
 of phase 12.a by shard count; ``spatial_train_launches``: per row-sharded
-train step of phase 13.b by shard count), and {"ok": true, "device":
-{...}}.
+train step of phase 13.b by shard count; ``spatial_option_train_launches``:
+per train step with every option of phase 13.e by remat and shard count),
+and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1043,10 +1063,13 @@ def trainer_phase(torch, dev) -> dict:
     # ---- 8.2 resume into epoch 1 ---------------------------------------
     # in this process, with tpu.spatial_shards: 2, which one card cannot
     # give: the trainer prints the JAX trainer's message and trains
-    # unsharded (JAX's rule, parallel/mesh.spatial_devices)
-    records, text = train_in_process(args + ["train.epochs=2",
-                                             "args.resume=true",
-                                             "tpu.spatial_shards=2"])
+    # unsharded (JAX's rule, parallel/mesh.spatial_devices); on the first
+    # TRAIN_BATCH samples of each list (data.max_samples): one step, a
+    # quarter of the epoch's train decodes and half of its evaluation's
+    # (the resume is held by the state)
+    records, text = train_in_process(args + [
+        "train.epochs=2", "args.resume=true", "tpu.spatial_shards=2",
+        f"data.max_samples={TRAIN_BATCH}"])
     if (torch.cuda.device_count() < 2
             and fallback_message(2, torch.cuda.device_count()) not in text):
         raise AssertionError("tpu.spatial_shards=2 on one card: no fallback "
@@ -1058,8 +1081,8 @@ def trainer_phase(torch, dev) -> dict:
         raise AssertionError(f"resume: {resumed}, saved state {want}")
     second = epoch_record(records, 1)
     latest = read_checkpoint(ckpts / "latest_ckpt.pth")
-    if second["steps"] != steps or latest["epoch"] != 1 or \
-            latest["step"] != 2 * steps:
+    if second["steps"] != 1 or latest["epoch"] != 1 or \
+            latest["step"] != steps + 1:
         raise AssertionError(f"epoch 1: {second['steps']} steps, latest "
                              f"checkpoint epoch {latest['epoch']} step "
                              f"{latest['step']}")
@@ -1832,7 +1855,11 @@ def dp_rank(device, payload) -> dict:
     synthetic batch, with PyTorch's deterministic
     algorithms where ``deterministic``; per job the launches, the losses
     (summed over the ranks), the state's sha256 and, on rank 0 with
-    ``models``, both models and their first moments on the CPU."""
+    ``models``, both models and their first moments on the CPU. A payload
+    of ``groups`` runs each group's payload in turn in the same ranks (one
+    process start) and returns their results in order."""
+    if "groups" in payload:
+        return [dp_rank(device, p) for p in payload["groups"]]
     import torch
 
     from climategan_torch import kernels
@@ -1944,7 +1971,8 @@ def _dp_batch(payload, device):
 
 def _launch(torch, world, payload, devices, backend) -> list:
     """``dp_rank`` on ``world`` ranks; every rank's state after each job
-    must be rank 0's."""
+    must be rank 0's. Returns each rank's result, or for a payload of
+    ``groups`` each group's results by rank."""
     from climategan_torch.parallel.spawn import run_ranks
 
     torch.cuda.synchronize()
@@ -1954,10 +1982,13 @@ def _launch(torch, world, payload, devices, backend) -> list:
                     backend=backend, timeout=DP_TIMEOUT)
     log(f"  {world} {backend} rank(s) on {devices}: "
         f"{time.perf_counter() - t0:.1f} s with their start")
-    digests = [[j["digest"] for j in r["jobs"]] for r in got]
-    if any(d != digests[0] for d in digests):
-        raise AssertionError(f"the ranks' states differ: {digests}")
-    return got
+    groups = ([[r[g] for r in got] for g in range(len(payload["groups"]))]
+              if "groups" in payload else [got])
+    for ranks in groups:
+        digests = [[j["digest"] for j in r["jobs"]] for r in ranks]
+        if any(d != digests[0] for d in digests):
+            raise AssertionError(f"the ranks' states differ: {digests}")
+    return groups if "groups" in payload else got
 
 
 def _plain_steps(torch, dev, payload, jobs) -> list:
@@ -1985,20 +2016,13 @@ def _plain_steps(torch, dev, payload, jobs) -> list:
     return out
 
 
-def tiny_ranks(torch, dev) -> None:
-    """Phase 11.b, with phase 13.d: two gloo ranks on cuda:0 at tiny sizes,
-    each step plain and hybrid (each rank's rows over two row shards)."""
-    import copy
+def tiny_payload(torch, dev) -> tuple:
+    """Phase 11.b's payload, with phase 13.d's jobs: two gloo ranks on
+    cuda:0 at tiny sizes, each step plain and hybrid (each rank's rows over
+    two row shards); with the card's one-process steps on the global batch
+    that hold them."""
+    from climategan_torch.utils.step_check import TINY_DP_DEPTH, TINY_SIZE
 
-    from climategan_torch.utils.step_check import (
-        TINY_DP_DEPTH,
-        TINY_SIZE,
-        hold_state,
-    )
-
-    # ---- 11.b two gloo ranks on cuda:0, tiny ------------------------------
-    # (with phase 13.d's hybrid steps: each rank's rows over two row shards
-    # of cuda:0, in the same launch)
     plain_jobs = [("g_step", DP_DRAWS[0]), ("d_step", DP_DRAWS[1])]
     tiny = {"config": _dp_config(True), "n": 2, "size": TINY_SIZE,
             "feat": 32, "depth": TINY_DP_DEPTH, "batch_seed": 0,
@@ -2009,7 +2033,16 @@ def tiny_ranks(torch, dev) -> None:
         ref = _plain_steps(torch, dev, tiny, plain_jobs)
     finally:
         torch.use_deterministic_algorithms(False)
-    ranks = _launch(torch, 2, tiny, ["cuda:0", "cuda:0"], "gloo")
+    return tiny, ref
+
+
+def check_tiny_ranks(tiny, ranks, ref) -> None:
+    """Phase 11.b and 13.d: the ranks' steps of ``tiny_payload`` held to
+    the one-process steps."""
+    import copy
+
+    from climategan_torch.utils.step_check import hold_state
+
     for i, (name, _, *shards) in enumerate(tiny["jobs"]):
         mine, want_job = ranks[0]["jobs"][i], ref[i % 2]
         what = (f"13.d {name} on 2 ranks x 2 row shards" if shards
@@ -2042,7 +2075,6 @@ def tiny_ranks(torch, dev) -> None:
             f"row per rank), {name} against the one-process step: "
             f"{len(mine['metrics'])} losses within 1e-4; {summary}; digests "
             f"equal")
-    del ref
 
 
 def parallel_phase(torch, dev, run_dir: Path) -> dict:
@@ -2110,17 +2142,21 @@ def parallel_phase(torch, dev, run_dir: Path) -> dict:
         f"(sha256 {want[0][:16]}..., {want[1][:16]}...); launches per rank "
         f"step (g_step + d_step) {ddp}")
 
-    tiny_ranks(torch, dev)
-
-    # ---- 11.c two gloo ranks on cuda:0, full width ------------------------
-    # in f32: in bf16 a mean of near-cancelling D outputs (s_advent_D_r,
-    # about 0.015 from outputs of about 1) moves by 4.5% of itself between
-    # a forward of one row and of two (H100 80GB HBM3, 700 W)
+    # ---- 11.b and 11.c: one launch of two gloo ranks on cuda:0 ------------
+    # 11.b tiny (with phase 13.d's hybrid steps: each rank's rows over two
+    # row shards of cuda:0), then 11.c at full width in f32: in bf16 a mean
+    # of near-cancelling D outputs (s_advent_D_r, about 0.015 from outputs
+    # of about 1) moves by 4.5% of itself between a forward of one row and
+    # of two (H100 80GB HBM3, 700 W)
+    tiny, ref = tiny_payload(torch, dev)
     full32 = dict(full, config={"train": {"bf16": False}},
                   deterministic=False)
     want_metrics = [p["metrics"] for p in
                     _plain_steps(torch, dev, full32, full32["jobs"])]
-    ranks = _launch(torch, 2, full32, ["cuda:0", "cuda:0"], "gloo")
+    tiny_got, ranks = _launch(torch, 2, {"groups": [tiny, full32]},
+                              ["cuda:0", "cuda:0"], "gloo")
+    check_tiny_ranks(tiny, tiny_got, ref)
+    del ref, tiny_got
     got_metrics = [j["metrics"] for j in ranks[0]["jobs"]]
     worst = max(abs(got[k] - v) / max(abs(v), 1e-12)
                 for got, want_job in zip(got_metrics, want_metrics)
@@ -2708,6 +2744,253 @@ def spatial_train_phase(torch, dev) -> dict:
             "step_ms": step_ms, "masked_blend_err": (e32, e16)}
 
 
+# phase 13.e: every step option at once on rows
+SPATIAL_OPTIONS = {
+    "dis": {"p": {"use_local_discriminator": True},
+            "m": {"gan_type": "WGAN_gp"}, "s": {"gan_type": "WGAN_gp"}},
+    "gen": {"m": {"use_pl4m": True},
+            "p": {"diff_aug": {"use": True, "do_color_jittering": True,
+                               "do_cutout": True, "do_translation": True}}},
+    "train": {"allow_random_vgg": True},
+}
+REMAT_ON = {"tpu": {"remat": True, "remat_d": True}}
+# the tiny step's small_convs area (as tests/test_torch_port_spatial_train
+# .py): a 16^2 map over it, a 2-shard window of it under it
+TINY_REMAT_AREA = 200
+TINY_OPTION_BAR = 1e-6  # the float64 tiny steps' losses, relative
+
+
+def _option_opts(*overrides):
+    from climategan_torch.utils.opts import load_opts, merge
+
+    opts = load_opts()
+    for over in overrides:
+        merge(over, opts)
+    return opts
+
+
+def _random_vgg(torch, dev, dtype=None):
+    """The perceptual loss's VGG under train.allow_random_vgg, as the
+    trainer builds it: random weights from torch's seed 0."""
+    from climategan_torch.losses import VGG19Features
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        vgg = VGG19Features()
+    return vgg.to(device=dev, dtype=dtype)
+
+
+def spatial_options_phase(torch, dev) -> dict:
+    """Phase 13.e (see the module docstring): every step option at once on
+    row shards of the one card. Returns masked_blend's launches per bf16
+    train_step by remat and shard count and its largest errors against the
+    plain version over a 2-shard step's launches."""
+    import statistics
+
+    import torch.nn.functional as F
+
+    from climategan_torch import bench_train, kernels
+    from climategan_torch.kernels import masked_blend as masked_blend_mod
+    from climategan_torch.kernels.masked_blend import (
+        masked_blend,
+        masked_blend_plain,
+    )
+    from climategan_torch.models.discriminator import avg_pool_3x3_s2
+    from climategan_torch.train_step import StepBuilder
+    from climategan_torch.utils.step_check import (
+        TINY_OVERRIDES,
+        TINY_SIZE,
+        hold_state,
+    )
+
+    t_phase = time.perf_counter()
+    # ---- the painter D's pool on the paste's NHWC-strided output ---------
+    # PyTorch's CUDA backward of an overlapping average pool is wrong for a
+    # channels-last input (information); the port's pool, which makes its
+    # input contiguous, must equal the contiguous input's gradient
+    x = torch.rand(2, 3, 32, 32, dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(0)).to(dev)
+    up = torch.rand(2, 3, 16, 16, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    errs = {}
+    for name, pool in (("F.avg_pool2d", lambda t: F.avg_pool2d(
+            t, 3, 2, 1, count_include_pad=False)),
+                       ("avg_pool_3x3_s2", avg_pool_3x3_s2)):
+        grads = []
+        for t in (x.clone(), x.permute(0, 2, 3, 1).contiguous().permute(
+                0, 3, 1, 2)):
+            t.requires_grad_(True)
+            grads.append(torch.autograd.grad((pool(t) * up).sum(), t)[0])
+        errs[name] = (grads[0] - grads[1]).abs().max().item()
+        top = grads[0].abs().max().item()
+    log(f"13.e the painter D's 3x3/2 average pool, input gradient of a "
+        f"channels-last (2, 3, 32, 32) float64 input against a contiguous "
+        f"one: PyTorch's F.avg_pool2d {errs['F.avg_pool2d']:.3e}, the "
+        f"port's avg_pool_3x3_s2 {errs['avg_pool_3x3_s2']:.3e} (of "
+        f"{top:.3e})")
+    if not errs["avg_pool_3x3_s2"] <= 1e-12:
+        raise AssertionError("13.e the port's pool on a channels-last input")
+
+    # ---- 13.e (a) tiny, float64: every option, remat under small_convs ----
+    opts = _option_opts(TINY_OVERRIDES, SPATIAL_OPTIONS, REMAT_ON, {
+        "tpu": {"remat_policy": f"small_convs:{TINY_REMAT_AREA}"}})
+    builder = StepBuilder(opts, vgg=_random_vgg(torch, dev, torch.float64))
+    first = builder.init_state(0, dev)
+    first.G, first.D = first.G.double(), first.D.double()
+    tiny = {d: {key: v.double() if v.is_floating_point() else v
+                for key, v in b.items()}
+            for d, b in bench_train.synthetic_batch(2, TINY_SIZE, 32, dev,
+                                                    seed=0).items()}
+    # a KITTI pretraining batch: domain s items alone
+    for what, batch in (("2 per domain", tiny), ("kitti", {"s": tiny["s"]})):
+        for i, (net, lr) in enumerate((("G", builder.g_lr),
+                                       ("D", builder.d_lr))):
+            ref, m_ref, mu_ref = _sharded_job(torch, builder, first, batch,
+                                              i, None)
+            step_name = ("g_step", "d_step")[i]
+            for k in SPATIAL_TRAIN_SHARDS:
+                st, m, mu = _sharded_job(torch, builder, first, batch, i,
+                                         [SPATIAL_DEVICE] * k)
+                name = f"13.e(a) {what}, {k} shards, {step_name}"
+                if set(m) != set(m_ref):
+                    raise AssertionError(f"{name}: losses {sorted(m)}")
+                worst = 0.0
+                for key, v in m_ref.items():
+                    worst = max(worst, abs(m[key] - v) / max(abs(v), 1e-12))
+                    if abs(m[key] - v) > TINY_OPTION_BAR * abs(v) + 1e-12:
+                        raise AssertionError(f"{name} {key}: {m[key]} "
+                                             f"against unsharded {v}")
+                other = "D" if net == "G" else "G"
+                summary = hold_state(getattr(st, net),
+                                     getattr(ref, net).state_dict(), lr, mu,
+                                     mu_ref, what=f"{name} {net}")
+                hold_state(getattr(st, other),
+                           getattr(ref, other).state_dict(),
+                           what=f"{name}, the other model {other}")
+                log(f"{name} (tiny float64, every option, remat small_convs:"
+                    f"{TINY_REMAT_AREA}): {len(m)} losses within "
+                    f"{worst:.2e} relative of the unsharded step's; "
+                    f"{summary}")
+            del ref
+    del builder, first, tiny
+    log(f"13.e(a): {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 13.e (b) full width: f32 losses, bf16 time and peak --------------
+    t_b = time.perf_counter()
+    batch = bench_train.synthetic_batch(BATCH, SIZE, 160, dev)
+    builder = StepBuilder(_option_opts(SPATIAL_OPTIONS, REMAT_ON, {
+        "train": {"bf16": False}}), vgg=_random_vgg(torch, dev))
+    first = builder.init_state(0, dev)
+    losses = {}
+    for k in (1, 2):
+        devices = None if k == 1 else [SPATIAL_DEVICE] * k
+        losses[k] = {}
+        for i in (0, 1):
+            _, m, _ = _sharded_job(torch, builder, first, batch, i, devices)
+            losses[k].update(m)
+    if set(losses[2]) != set(losses[1]):
+        raise AssertionError(f"13.e(b) f32 losses: {sorted(losses[2])} "
+                             f"against {sorted(losses[1])}")
+    worst = (0.0, "")
+    for key, v in losses[1].items():
+        worst = max(worst, (abs(losses[2][key] - v) / max(abs(v), 1e-12),
+                            key))
+        if abs(losses[2][key] - v) > SPATIAL_TRAIN_BAR * abs(v) + 1e-9:
+            raise AssertionError(f"13.e(b) f32 2 shards {key}: "
+                                 f"{losses[2][key]} against unsharded {v}")
+    log(f"13.e(b) f32 (640^2, {BATCH} per domain, every option, remat and "
+        f"remat_d, a random VGG): {len(losses[1])} losses of g_step and "
+        f"d_step over 2 shards within {worst[0]:.3e} relative of the "
+        f"unsharded steps' ({worst[1]}; bar {SPATIAL_TRAIN_BAR})")
+    del builder, first
+    torch.cuda.empty_cache()
+
+    vgg = _random_vgg(torch, dev)
+    launched, step_ms, peaks, calls = {}, {}, {}, []
+
+    def record(*args):
+        # detached: a kept input that requires grad would keep its graph,
+        # and a rematerialized step's recomputed activations, alive
+        calls.append(tuple(a.detach() for a in args))
+        return masked_blend(*args)
+
+    for remat in (False, True):
+        builder = StepBuilder(_option_opts(
+            SPATIAL_OPTIONS, REMAT_ON if remat else {}), vgg=vgg)
+        state = builder.init_state(0, dev)
+        for k in (1, 2):
+            devices = None if k == 1 else [SPATIAL_DEVICE] * k
+            key = (remat, k)
+            if key == (True, 2):
+                masked_blend_mod.masked_blend = record
+            try:
+                state, _ = builder.train_step(state, batch, devices=devices)
+            finally:
+                masked_blend_mod.masked_blend = masked_blend
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            times = []
+            for _ in range(SPATIAL_TRAIN_TIMED):
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                state, metrics = builder.train_step(state, batch,
+                                                    devices=devices)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            if not all(torch.isfinite(v).all() for v in metrics.values()):
+                raise AssertionError(f"13.e(b) {key}: non-finite losses")
+            launched[key] = dict(kernels.launches)
+            step_ms[key] = statistics.median(times)
+            peaks[key] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            log(f"13.e(b) bf16 train_step, every option, "
+                f"{'remat + remat_d' if remat else 'no remat'}, {k} "
+                f"shard(s) (640^2, {BATCH} per domain): p50 "
+                f"{step_ms[key]:.2f} ms of {SPATIAL_TRAIN_TIMED} ("
+                f"{', '.join(f'{t:.2f}' for t in times)}), peak "
+                f"{peaks[key]:.2f} GiB, launches per step {launched[key]}")
+        del builder, state
+        torch.cuda.empty_cache()
+    for remat in (False, True):
+        one, two = launched[(remat, 1)], launched[(remat, 2)]
+        want = {n: 2 * one[n] for n in one}
+        if two != want or not one["masked_blend"] or one["spade_cond"]:
+            raise AssertionError(f"13.e(b) launches, remat {remat}: 1 shard "
+                                 f"{one}, 2 shards {two}")
+    if len(calls) != launched[(True, 2)]["masked_blend"]:
+        raise AssertionError(f"13.e(b) recorded {len(calls)} masked_blend "
+                             f"launches of a 2-shard step")
+    e32 = e16 = 0.0
+    for xb, fb, mb in calls:
+        a32 = (xb.float(), fb.float(), mb.float())
+        e = (masked_blend(*a32) - masked_blend_plain(*a32)).abs().max().item()
+        if not e <= 1e-6:
+            raise AssertionError(f"13.e(b) masked_blend f32 max error {e}")
+        e32 = max(e32, e)
+        got16, want16 = masked_blend(xb, fb, mb).float(), \
+            masked_blend_plain(*a32)
+        ulp = 2.0 ** (torch.floor(torch.log2(want16.abs().max())).item() - 7)
+        e = (got16 - want16).abs().max().item()
+        if not e <= ulp:
+            raise AssertionError(f"13.e(b) masked_blend bf16 error {e} > "
+                                 f"{ulp}")
+        e16 = max(e16, e)
+    log(f"13.e(b) the 2-shard remat bf16 step's {len(calls)} masked_blend "
+        f"launches (pl4m's and the painter's pastes, each recomputed once; "
+        f"shards {sorted({tuple(c[0].shape) for c in calls})}) against "
+        f"masked_blend_plain on the same inputs: f32 max error {e32:.3e}, "
+        f"bf16 {e16:.3e} (within one ulp)")
+    log(f"13.e(b) remat at 2 shards: p50 {step_ms[(True, 2)]:.2f} ms against "
+        f"{step_ms[(False, 2)]:.2f} without ("
+        f"{step_ms[(True, 2)] / step_ms[(False, 2)]:.2f}x), peak "
+        f"{peaks[(True, 2)]:.2f} GiB against {peaks[(False, 2)]:.2f}; "
+        f"{time.perf_counter() - t_b:.1f} s")
+    del calls, batch, vgg
+    torch.cuda.empty_cache()
+    log(f"row-sharded options phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launched, "step_ms": step_ms, "peak_gib": peaks,
+            "masked_blend_err": (e32, e16)}
+
+
 def main() -> int:
     import torch
 
@@ -3100,6 +3383,7 @@ def run(torch) -> int:
     spatial_launches = spatial_phase(torch, dev)
     with torch.inference_mode(False), torch.enable_grad():
         spatial_train = spatial_train_phase(torch, dev)
+        spatial_options = spatial_options_phase(torch, dev)
     for r in rows:
         r["train_launches"] = train_launches[r["name"]]
         r["ddp_train_launches"] = ddp_launches[r["name"]]
@@ -3111,6 +3395,10 @@ def run(torch) -> int:
         r["spatial_train_launches"] = {
             f"{k} shards": n[r["name"]]
             for k, n in spatial_train["launches"].items()}
+        r["spatial_option_train_launches"] = {
+            f"{'remat, ' if remat else ''}{k} shard{'s' if k > 1 else ''}":
+                n[r["name"]]
+            for (remat, k), n in spatial_options["launches"].items()}
         if r["name"] == "spade_cond":
             r["spade_masker"] = configs["spade_cond"]
         r["step_option_launches"] = {

@@ -290,7 +290,8 @@ def _sobel_sum_rows(x: Rows) -> torch.Tensor:
         lo, hi = x.bounds(i)
         top = min(hi, x.h - 2)  # the last valid output row + 1
         if top > lo:
-            parts.append(_sobel_sum(x.fetch(lo, top + 2, dev)))
+            with spatial.whole_map(x.h, x.w):
+                parts.append(_sobel_sum(x.fetch(lo, top + 2, dev)))
     return spatial.total(parts, x.devices)
 
 
@@ -427,17 +428,26 @@ def advent_loss(prob, target: float, disc_fn: Callable,
     return wgan_domain_loss(d_out, target)
 
 
-def wgan_gp(disc_fn: Callable[[torch.Tensor], torch.Tensor],
-            x: torch.Tensor) -> torch.Tensor:
+def wgan_gp(disc_fn: Callable, x) -> torch.Tensor:
     """WGAN gradient penalty: the gradient of ``sum(disc_fn(x))`` with
     respect to ``x``, then the mean over samples of ``(||g||_2 - 1)^2``
     (the norm as ``sqrt(sum g^2 + 1e-12)``). ``x`` enters detached; the
     gradient keeps its graph, so the penalty is differentiable in the
-    discriminator's parameters (reference tutils.py:487-501)."""
-    x = x.detach().requires_grad_(True)
-    (g,) = torch.autograd.grad(disc_fn(x).sum(), x, create_graph=True)
-    norms = torch.sqrt(torch.sum(g.reshape(g.shape[0], -1) ** 2, dim=1)
-                       + 1e-12)
+    discriminator's parameters (reference tutils.py:487-501). On a
+    row-sharded ``x`` the gradient is taken with respect to every shard,
+    and each sample's sum of squares over all of them."""
+    if isinstance(x, Rows):
+        parts = [p.detach().requires_grad_(True) for p in x.parts]
+        grads = torch.autograd.grad(_sum(disc_fn(Rows(parts))), parts,
+                                    create_graph=True, allow_unused=True)
+        n = parts[0].shape[0]
+        squares = spatial.total([torch.sum(g.reshape(n, -1) ** 2, dim=1)
+                                 for g in grads if g is not None], x.devices)
+    else:
+        x = x.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(disc_fn(x).sum(), x, create_graph=True)
+        squares = torch.sum(g.reshape(g.shape[0], -1) ** 2, dim=1)
+    norms = torch.sqrt(squares + 1e-12)
     return _share(torch.mean((norms - 1.0) ** 2))
 
 
@@ -469,7 +479,9 @@ class VGG19Features(nn.Module):
                 cin = v
         self.features = nn.Sequential(*layers)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x) -> list:
+        if isinstance(x, Rows):
+            return self.forward_rows(x)
         outs = []
         for i, layer in enumerate(self.features):
             x = layer(x)
@@ -477,21 +489,44 @@ class VGG19Features(nn.Module):
                 outs.append(x)
         return outs
 
+    def forward_rows(self, x: Rows) -> List[Rows]:
+        """``forward`` on a row-sharded map: the 3x3 convs read a one-row
+        halo, a 2x2 pool of a shard with an odd row count its neighbour's
+        row; each shard reads the weights on its device."""
+        outs = []
+        for i, layer in enumerate(self.features):
+            if isinstance(layer, nn.Conv2d):
+                x = spatial.conv2d(x, layer)
+            elif isinstance(layer, nn.MaxPool2d):
+                x = spatial.max_pool2d(x, 2, 2, 0)
+            else:
+                x = x.map(layer)
+            if i in _VGG_SLICE_ENDS:
+                outs.append(x)
+        return outs
 
-def vgg_preprocess(batch: torch.Tensor) -> torch.Tensor:
-    """[-1, 1] RGB (NCHW) -> caffe-style BGR in [0, 255] minus the
-    ImageNet mean."""
+
+def _vgg_preprocess(batch: torch.Tensor) -> torch.Tensor:
     bgr = (batch.flip(1) + 1.0) * 255.0 * 0.5
     mean = torch.tensor([103.939, 116.779, 123.680], dtype=bgr.dtype,
                         device=bgr.device)
     return bgr - mean[None, :, None, None]
 
 
-def vgg_loss(vgg: VGG19Features, x: torch.Tensor,
-             y: torch.Tensor) -> torch.Tensor:
+def vgg_preprocess(batch):
+    """[-1, 1] RGB (NCHW, a tensor or a row-sharded map) -> caffe-style
+    BGR in [0, 255] minus the ImageNet mean."""
+    return each(_vgg_preprocess, batch)
+
+
+def vgg_loss(vgg: VGG19Features, x, y) -> torch.Tensor:
     """pix2pixHD perceptual loss: weighted L1 over the five slices, y's
-    side detached."""
+    side detached (in f32, float64 kept; tensors or row-sharded maps)."""
     total = 0.0
     for w, a, b in zip(_VGG_WEIGHTS, vgg(x), vgg(y)):
-        total = total + w * l1_loss(a.float(), b.detach().float())
+        total = total + w * l1_loss(upcast(a), upcast(_detach(b)))
     return total
+
+
+def _detach(x):
+    return each(torch.Tensor.detach, x)

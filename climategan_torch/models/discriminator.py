@@ -92,10 +92,14 @@ class NLayerDiscriminator(nn.Module):
 
 def avg_pool_3x3_s2(x):
     """AvgPool2d(3, stride=2, padding=1, count_include_pad=False), of a
-    tensor or a row-sharded map."""
+    tensor or a row-sharded map. The input is made NCHW-contiguous first:
+    PyTorch's CUDA backward of an overlapping average pool gives wrong
+    input gradients for a channels-last input (torch 2.11, every dtype),
+    and the painter D's input is the paste's NHWC output under the local
+    D."""
     if isinstance(x, Rows):
         return spatial.avg_pool2d(x, 3, 2, 1)
-    return F.avg_pool2d(x, 3, 2, 1, count_include_pad=False)
+    return F.avg_pool2d(x.contiguous(), 3, 2, 1, count_include_pad=False)
 
 
 class MultiscaleDiscriminator(nn.Module):

@@ -320,7 +320,7 @@ class OmniGenerator(nn.Module):
         no u/v stored) on its parameters detached, on the plain convs of
         train mode, so the gradient reaches m and x only."""
         if isinstance(x, Rows):
-            return self.paint_rows(m, x, no_paste, update_sn)
+            return self.paint_rows(m, x, no_paste, update_sn, frozen)
         m = m.to(x.dtype)
         if not self.cfg.p_no_z and z is None:
             z = self.sample_painter_z(x.shape[0], x.shape[2], x.shape[3],
@@ -363,12 +363,19 @@ class OmniGenerator(nn.Module):
         return d, self.segmentation(z, z_depth), self.mask(z, z_depth)
 
     def paint_rows(self, m: Rows, x: Rows, no_paste: bool = False,
-                   update_sn: bool = False) -> Rows:
-        """``paint`` (``no_z``) on row-sharded maps; the paste runs on each
-        shard, with its gradient in train mode."""
+                   update_sn: bool = False, frozen: bool = False) -> Rows:
+        """``paint`` (``no_z``) on row-sharded maps, ``frozen`` as there;
+        the paste runs on each shard, with its gradient in train mode."""
         m = m.map(lambda p: p.to(x.dtype))
-        fake = self.painter.forward_rows(
-            x.zip(m, lambda a, b: a * (1.0 - b)), update_sn)
+        cond = x.zip(m, lambda a, b: a * (1.0 - b))
+        if frozen and self.painter.training:
+            params = {k: p.detach()
+                      for k, p in self.painter.named_parameters()}
+            with running_statistics(self.painter):
+                fake = torch.func.functional_call(self.painter, params,
+                                                  (cond,))
+        else:
+            fake = self.painter.forward_rows(cond, update_sn)
         if self.cfg.p_paste_original_content and not no_paste:
             return paste_rows(x, fake, m)
         return fake

@@ -58,8 +58,13 @@ class PainterSpadeDecoder(nn.Module):
         self.final_spade = srb(final_nc, final_nc)
         self.conv_img = nn.Conv2d(final_nc, 3, 3, padding=1)
 
-    def forward(self, cond: torch.Tensor, update_sn: bool = False,
-                z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, cond, update_sn: bool = False,
+                z: Optional[torch.Tensor] = None):
+        if isinstance(cond, Rows):
+            if z is not None:
+                raise ValueError("row-sharded painting takes a no_z painter "
+                                 "(ROADMAP A.11b-3)")
+            return self.forward_rows(cond, update_sn)
         if z is None:
             if not hasattr(self, "fc"):
                 raise ValueError("a painter built with no_z=False needs z")

@@ -7,6 +7,12 @@ jitter and integer offsets for the translation and the cutout. JAX's keys
 cannot be reproduced in PyTorch, so a caller that holds the port to the JAX
 package feeds JAX's draws in; ``DiffTransforms.draw`` draws them from a
 torch ``Generator`` otherwise.
+
+Each transform also takes a row-sharded map (``parallel/spatial.Rows``)
+with the same draws and the same result as on the whole map: the color
+jitter per pixel, the contrast's per-sample mean over every shard, the
+translation's rows fetched from the shards that hold them, the cutout's
+rectangle from each shard's global row indices.
 """
 from __future__ import annotations
 
@@ -16,6 +22,9 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from climategan_torch.parallel import spatial
+from climategan_torch.parallel.spatial import Rows, each
+
 Draws = Dict[str, torch.Tensor]
 
 
@@ -23,20 +32,38 @@ def _per_sample(r: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return r.to(device=x.device, dtype=x.dtype).reshape(-1, 1, 1, 1)
 
 
-def rand_brightness(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+def rand_brightness(x, r: torch.Tensor):
     """``x + (r - 0.5)`` with one uniform ``r`` per sample."""
-    return x + (_per_sample(r, x) - 0.5)
+    return each(lambda t: t + (_per_sample(r, t) - 0.5), x)
 
 
-def rand_saturation(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """Each pixel's distance to its mean over the channels, scaled by
-    ``2 r``."""
+def _saturation(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     mean = x.mean(dim=1, keepdim=True)
     return (x - mean) * (_per_sample(r, x) * 2.0) + mean
 
 
-def rand_contrast(x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+def rand_saturation(x, r: torch.Tensor):
+    """Each pixel's distance to its mean over the channels, scaled by
+    ``2 r``."""
+    return each(lambda t: _saturation(t, r), x)
+
+
+def _sample_means(x: Rows) -> list:
+    """Each sample's mean over the whole row-sharded map, (N, 1, 1, 1) on
+    every shard's device: float64 sums over the shards."""
+    n, c, _, w = x.parts[0].shape
+    sums = spatial.all_reduce(
+        [p.sum(dim=(1, 2, 3), dtype=torch.float64) if p.shape[2] else None
+         for p in x.parts], "sum", x.devices)
+    return [(s / (c * x.h * w)).to(p.dtype).reshape(n, 1, 1, 1)
+            for s, p in zip(sums, x.parts)]
+
+
+def rand_contrast(x, r: torch.Tensor):
     """Each sample's distance to its mean, scaled by ``r + 0.5``."""
+    if isinstance(x, Rows):
+        return Rows([(p - mean) * (_per_sample(r, p) + 0.5) + mean
+                     for p, mean in zip(x.parts, _sample_means(x))])
     mean = x.mean(dim=(1, 2, 3), keepdim=True)
     return (x - mean) * (_per_sample(r, x) + 0.5) + mean
 
@@ -46,20 +73,54 @@ def translation_shifts(h: int, w: int, ratio: float = 0.125):
     return int(h * ratio + 0.5), int(w * ratio + 0.5)
 
 
-def rand_translation(x: torch.Tensor, tx: torch.Tensor,
-                     ty: torch.Tensor) -> torch.Tensor:
+def _shift_columns(rows: torch.Tensor, ty: torch.Tensor) -> torch.Tensor:
+    """Each sample's (N, C, rows, W + 2) rows, zero-padded by a column on
+    each side, shifted by ``ty`` columns: a gather, its indices clipped
+    into the padding."""
+    n, c, hh, w = rows.shape
+    w -= 2
+    gy = torch.clamp(torch.arange(w, device=rows.device)[None, :]
+                     + ty.to(rows.device).reshape(n, 1) + 1, 0, w + 1)
+    return torch.gather(rows, 3, gy[:, None, None, :].expand(n, c, hh, w))
+
+
+def _translate_rows(x: Rows, tx: torch.Tensor, ty: torch.Tensor) -> Rows:
+    """``rand_translation`` on a row-sharded map: a shard's output rows
+    [lo, hi) read input rows [lo - s, hi + s) for the largest shift s,
+    fetched as one window (zero beyond the image's top and bottom, as the
+    whole map's padding), then each sample's rows gathered from it."""
+    n = x.parts[0].shape[0]
+    shift = int(tx.abs().max()) if tx.numel() else 0
+    parts = []
+    for i, dev in enumerate(x.devices):
+        lo, hi = x.bounds(i)
+        if hi == lo:
+            parts.append(x.parts[i])
+            continue
+        win = F.pad(spatial.window(x, lo - shift, hi + shift, dev),
+                    (1, 1))
+        c, w2 = win.shape[1], win.shape[3]
+        gx = (torch.arange(hi - lo, device=dev)[None, :]
+              + tx.to(dev).reshape(n, 1) + shift)
+        rows = torch.gather(win, 2, gx[:, None, :, None].expand(
+            n, c, hi - lo, w2))
+        parts.append(_shift_columns(rows, ty))
+    return Rows(parts)
+
+
+def rand_translation(x, tx: torch.Tensor, ty: torch.Tensor):
     """Each sample shifted by ``tx`` rows and ``ty`` columns (integers), the
     uncovered border zero: a gather from the image padded with one zero on
     each side, its indices clipped into the padding."""
+    if isinstance(x, Rows):
+        return _translate_rows(x, tx, ty)
     n, c, h, w = x.shape
     dev = x.device
     gx = torch.clamp(torch.arange(h, device=dev)[None, :]
                      + tx.to(dev).reshape(n, 1) + 1, 0, h + 1)
-    gy = torch.clamp(torch.arange(w, device=dev)[None, :]
-                     + ty.to(dev).reshape(n, 1) + 1, 0, w + 1)
     xp = F.pad(x, (1, 1, 1, 1))
     rows = torch.gather(xp, 2, gx[:, None, :, None].expand(n, c, h, w + 2))
-    return torch.gather(rows, 3, gy[:, None, None, :].expand(n, c, h, w))
+    return _shift_columns(rows, ty)
 
 
 def cutout_sizes(h: int, w: int, ratio: float = 0.5):
@@ -67,21 +128,30 @@ def cutout_sizes(h: int, w: int, ratio: float = 0.5):
     return int(h * ratio + 0.5), int(w * ratio + 0.5)
 
 
-def rand_cutout(x: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor,
-                ratio: float = 0.5) -> torch.Tensor:
-    """Each sample with a (ch, cw) rectangle zeroed, its centre at row
-    ``ox`` and column ``oy`` (``cutout_sizes``), cut by the border."""
-    n, _, h, w = x.shape
+def _cut(x: torch.Tensor, lo: int, h: int, ox: torch.Tensor,
+         oy: torch.Tensor, ratio: float) -> torch.Tensor:
+    """``x``, rows [lo, lo + rows) of an image of h rows, with the
+    cutout's rectangle zeroed."""
+    n, _, rows, w = x.shape
     ch, cw = cutout_sizes(h, w, ratio)
     dev = x.device
     ox = ox.to(dev).reshape(n, 1) - ch // 2
     oy = oy.to(dev).reshape(n, 1) - cw // 2
-    gx = torch.arange(h, device=dev)[None, :]
+    gx = torch.arange(lo, lo + rows, device=dev)[None, :]
     gy = torch.arange(w, device=dev)[None, :]
     in_x = (gx >= ox) & (gx < ox + ch)
     in_y = (gy >= oy) & (gy < oy + cw)
     mask = 1.0 - (in_x[:, :, None] & in_y[:, None, :]).to(x.dtype)
     return x * mask[:, None]
+
+
+def rand_cutout(x, ox: torch.Tensor, oy: torch.Tensor, ratio: float = 0.5):
+    """Each sample with a (ch, cw) rectangle zeroed, its centre at row
+    ``ox`` and column ``oy`` (``cutout_sizes``), cut by the border."""
+    if isinstance(x, Rows):
+        return Rows([_cut(p, x.starts[i], x.h, ox, oy, ratio)
+                     for i, p in enumerate(x.parts)])
+    return _cut(x, 0, x.shape[2], ox, oy, ratio)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +197,7 @@ class DiffTransforms:
                                       generator=generator)
         return out
 
-    def __call__(self, x: torch.Tensor, draws: Draws) -> torch.Tensor:
+    def __call__(self, x, draws: Draws):
         if self.do_color_jittering:
             x = rand_brightness(x, draws["brightness"])
             x = rand_contrast(x, draws["contrast"])

@@ -33,11 +33,17 @@ stacks, all differentiable, so the backward of a sharded forward is the
 backward of the whole map. Exchanges and collectives run inside
 ``torch.profiler.record_function`` ranges ("spatial.exchange",
 "spatial.collective") while a profiler is on, so a trace tells their share.
+
+A convolution on a shard's window runs inside ``whole_map``, so that a
+rematerialization policy that decides by a conv input's area
+(``train_step.make_remat_policy``) reads the whole map's, and a sharded
+step saves the convolutions the unsharded step saves.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -54,6 +60,29 @@ def split(h: int, k: int) -> List[Tuple[int, int]]:
     """The partition rule: shard i of k holds rows [i h // k, (i + 1) h //
     k) of a map of h rows."""
     return [(i * h // k, (i + 1) * h // k) for i in range(k)]
+
+
+_WHOLE = threading.local()
+
+
+@contextlib.contextmanager
+def whole_map(h: int, w: int):
+    """Inside the block ``whole_area()`` is ``h * w``: the area of the
+    input that the op on the whole map would read (a padded map where the
+    pad precedes the op), where it reads a shard's window. Per thread:
+    autograd may recompute a rematerialized forward on another thread,
+    which sets its own."""
+    prev = getattr(_WHOLE, "area", None)
+    _WHOLE.area = h * w
+    try:
+        yield
+    finally:
+        _WHOLE.area = prev
+
+
+def whole_area() -> Optional[int]:
+    """The whole map's area inside ``whole_map``, else None."""
+    return getattr(_WHOLE, "area", None)
 
 
 def trace_range(name: str):
@@ -368,15 +397,19 @@ def conv2d(r: Rows, conv: nn.Module, pad: int = 0,
     kw = conv.weight.shape[3]
     w_out = out_rows(r.parts[0].shape[3], kw, s, p, d)
     train = conv.training
+    # the input of the unsharded conv: the map, padded first where a pad
+    # precedes the conv
+    whole = (r.h + 2 * pad, r.w + 2 * pad) if pad else (r.h, r.w)
     # train mode: the weights of one power iteration, for every shard
     w0, b0, scale = (conv_weights(conv, update_sn) if train
                      else (None, None, None))
     parts = []
     for (a, b), dev in zip(split(h_out, r.k), r.devices):
-        if train:
-            w, bias = w0.to(dev), None if b0 is None else b0.to(dev)
-        else:
-            w, bias, _ = conv_weights(local(conv, dev))
+        if not train:
+            # a replica on the shard's device, or a module's own weights
+            # read there (a frozen module without replicas, as the VGG)
+            w0, b0, _ = conv_weights(local(conv, dev))
+        w, bias = w0.to(dev), None if b0 is None else b0.to(dev)
         if a == b:
             parts.append(r.like(0, dev, w.shape[0], w_out,
                                 _out_dtype(r.dtype, torch.device(dev))))
@@ -385,8 +418,9 @@ def conv2d(r: Rows, conv: nn.Module, pad: int = 0,
                      mode)
         if mode != "zero":
             win = F.pad(win, (p, p, 0, 0), mode=mode)
-        y = F.conv2d(win, w, bias if scale is None else None, s,
-                     (0, p) if mode == "zero" else 0, d)
+        with whole_map(*whole):
+            y = F.conv2d(win, w, bias if scale is None else None, s,
+                         (0, p) if mode == "zero" else 0, d)
         if scale is not None:
             y = y * scale.to(dev).to(y.dtype)
             if bias is not None:
@@ -415,7 +449,8 @@ def avg_pool2d(r: Rows, kernel: int, stride: int, padding: int) -> Rows:
     """``F.avg_pool2d(x, kernel, stride, padding, count_include_pad=
     False)``: each window's sum over the count of its pixels inside the
     image, which differs from kernel^2 only at the image's edges, never at
-    a shard's."""
+    a shard's. The window is made NCHW-contiguous first
+    (``discriminator.avg_pool_3x3_s2`` says why)."""
     h_out = out_rows(r.h, kernel, stride, padding, 1)
     w_out = out_rows(r.w, kernel, stride, padding, 1)
     parts = []
@@ -424,7 +459,7 @@ def avg_pool2d(r: Rows, kernel: int, stride: int, padding: int) -> Rows:
             parts.append(r.like(0, dev, width=w_out))
             continue
         lo, hi = a * stride - padding, (b - 1) * stride - padding + kernel
-        win = window(r, lo, hi, dev, "zero")
+        win = window(r, lo, hi, dev, "zero").contiguous()
         inside = torch.zeros((1, 1, hi - lo, r.w), dtype=win.dtype,
                              device=dev)
         inside[:, :, max(0, -lo):min(hi, r.h) - lo] = 1.0

@@ -89,8 +89,12 @@ gradients reach the one set of parameters (every shard reads them through
 ``.to(device)``), where autograd sums them; then the ranks' sums, as
 above. The batch norms' statistics are those of every shard (and rank),
 the spectral convs run one power iteration per call, the paste runs per
-shard. Under several ranks this is the hybrid data x space step. The
-options that cross rows or are not ported on rows raise
+shard. Under several ranks this is the hybrid data x space step. Every
+option runs on rows: the local painter D and pl4m's frozen painter on the
+shards, the gradient penalty's norms summed over them, the diff-aug
+translation's rows fetched from the neighbours, the VGG on rows, and remat
+of per-domain functions that take ``Rows`` (its ``small_convs`` policy by
+the whole map's area). Another generator configuration raises
 (``check_row_sharded_step``).
 """
 from __future__ import annotations
@@ -265,7 +269,9 @@ def make_remat_policy(spec: str) -> Optional[Callable[..., bool]]:
     product and convolution; ``"small_convs[:AREA]"`` saves every matrix
     product and each convolution whose input's spatial area is at most
     AREA pixels (default 160 * 160): the masker trunk's, not the painter's
-    full-resolution ones."""
+    full-resolution ones. On a row-sharded map the area is the whole
+    map's (``spatial.whole_area``), not the shard's window's, so a sharded
+    step saves the convolutions the unsharded step saves."""
     if not spec or spec == "full":
         return None
     if spec == "dots":
@@ -277,8 +283,11 @@ def make_remat_policy(spec: str) -> Optional[Callable[..., bool]]:
             if op in _MATMULS:
                 return True
             if op in _CONVS and args:
-                h, w = args[0].shape[-2:]
-                return h * w <= area
+                whole = spatial.whole_area()
+                if whole is None:
+                    h, w = args[0].shape[-2:]
+                    whole = h * w
+                return whole <= area
             return False
 
         return policy
@@ -352,30 +361,10 @@ def shard_rows(batch: Batch, devices) -> Batch:
             for dom, d in batch.items()}
 
 
-def check_row_sharded_step(opts, vgg: bool = False) -> None:
-    """Raises a ``ValueError`` naming each step option of ``opts`` that a
-    row-sharded step does not take (ROADMAP A.11b-2b), and ``check_rows``'s
-    error for a generator configuration without row-sharded forwards
-    (A.11b-3). ``vgg``: the perceptual loss has a VGG."""
-    c = TrainConfig.from_opts(opts)
-    tpu = opts.get("tpu", {}) or {}
-    refused = {
-        "dis.p.use_local_discriminator (the local painter D)": c.p_use_local,
-        "gen.m.use_pl4m": c.use_pl4m,
-        "dis.{m,s}.gan_type WGAN_gp": "WGAN_gp" in (c.m_gan_type,
-                                                    c.s_gan_type),
-        "gen.p.diff_aug.use (its translation and cutout cross rows)":
-            c.p_diff_aug_use,
-        "tpu.remat": bool(tpu.get("remat", False)),
-        "tpu.remat_d": bool(tpu.get("remat_d", False)),
-        "the VGG perceptual loss (train.lambdas.G.p.vgg with VGG weights)":
-            vgg and c.use_vgg and "p" in c.tasks,
-    }
-    bad = [k for k, on in refused.items() if on]
-    if bad:
-        raise ValueError("row-sharded training (tpu.spatial_shards > 1) does "
-                         "not take " + "; ".join(bad) + " yet (ROADMAP "
-                         "A.11b-2b)")
+def check_row_sharded_step(opts) -> None:
+    """Raises ``check_rows``'s error for a generator configuration without
+    row-sharded forwards (ROADMAP A.11b-3); every step option runs on
+    rows."""
     check_rows(GenConfig.from_opts(opts),
                "row-sharded training (tpu.spatial_shards > 1)")
 
@@ -559,7 +548,10 @@ class StepBuilder:
     def _remat(self, on: bool, fn, *args, **kwargs):
         """``fn(*args, **kwargs)``, under ``checkpoint`` when ``on``: the
         recompute starts from the statistics and u/v of G and D that the
-        forward started from (``remat_contexts``)."""
+        forward started from (``remat_contexts``). Row-sharded batches
+        (``Rows``) pass as they are; every op names its shard's device, so
+        a recompute that autograd runs on another device's thread computes
+        the same."""
         if not on:
             return fn(*args, **kwargs)
         G, D = args[0], args[1]
@@ -706,7 +698,7 @@ class StepBuilder:
                     metrics[f"s_advent_{for_}_{domain}"] = al
                     if for_ == "D" and cfg.s_gan_type == "WGAN_gp":
                         # the raw logits, as JAX feeds them
-                        gp_inputs["s"] = s_pred.detach().float()
+                        gp_inputs["s"] = L.upcast(_detach(s_pred))
 
         if logits is not None:
             logits = L.upcast(logits)
@@ -759,7 +751,7 @@ class StepBuilder:
                     total = total + al
                     metrics[f"m_advent_{for_}_{domain}"] = al
                     if for_ == "D" and cfg.m_gan_type == "WGAN_gp":
-                        gp_inputs["m"] = prob.detach()
+                        gp_inputs["m"] = _detach(prob)
         return total, metrics
 
     def _gradient_penalty(self, D, domain: str, gp_inputs, metrics):
@@ -786,12 +778,11 @@ class StepBuilder:
             # the painter's own dtype into p_global, as JAX feeds it
             with self._autocast(fake, fake.dtype == torch.bfloat16):
                 fdg = D.disc_p_global(fake)
-            fdl = D.disc_p_local(fake.float() * m)
+            fdl = D.disc_p_local(each(torch.mul, L.upcast(fake), m))
             return (self._p_gan_loss(fdg, True, draws, False)
                     + self._p_gan_loss(fdl, True, draws, False))
-        real_fake = torch.cat([torch.cat([m, x.float()], dim=1),
-                               torch.cat([m, fake.float()], dim=1)], dim=0)
-        _, fake_d = divide_pred(D.disc_p(real_fake))
+        _, fake_d = divide_pred(D.disc_p(_real_fake(m, L.upcast(x),
+                                                    L.upcast(fake))))
         return self._p_gan_loss(fake_d, True, draws, for_discriminator=False)
 
     def _paint(self, G, batch, update_sn: bool, bf16: bool,
@@ -822,8 +813,9 @@ class StepBuilder:
         metrics: Dict[str, torch.Tensor] = {}
         total = 0.0
         if cfg.use_vgg and cfg.lam_p_vgg != 0 and self.vgg is not None:
-            vl = L.vgg_loss(self.vgg, L.vgg_preprocess(fake * m),
-                            L.vgg_preprocess(x * m)) * cfg.lam_p_vgg
+            masked = [L.vgg_preprocess(each(torch.mul, t, m))
+                      for t in (fake, x)]
+            vl = L.vgg_loss(self.vgg, *masked) * cfg.lam_p_vgg
             total = total + vl
             metrics["p_vgg"] = vl
         if cfg.lam_p_tv != 0:
@@ -843,7 +835,8 @@ class StepBuilder:
         if cfg.p_use_local:
             # JAX's order of D calls: fake global, fake local, real global
             fake_d = D.disc_p_global(fake, update_sn=update_sn)
-            fake_l = D.disc_p_local(fake * m, update_sn=update_sn)
+            fake_l = D.disc_p_local(each(torch.mul, fake, m),
+                                    update_sn=update_sn)
             real_d = D.disc_p_global(x, update_sn=update_sn)
             gl = (self._p_gan_loss(fake_d, True, draws, False)
                   + self._p_gan_loss(fake_l, True, draws, False)) \
@@ -874,8 +867,8 @@ class StepBuilder:
             # JAX's order: fake global, real global, fake local, real local
             fdg = D.disc_p_global(fake, update_sn=True)
             rdg = D.disc_p_global(x, update_sn=True)
-            fdl = D.disc_p_local(fake * m, update_sn=True)
-            rdl = D.disc_p_local(x * m, update_sn=True)
+            fdl = D.disc_p_local(each(torch.mul, fake, m), update_sn=True)
+            rdl = D.disc_p_local(each(torch.mul, x, m), update_sn=True)
             return (gan(fdg, False, draws, True) + gan(rdg, True, draws, True)
                     + gan(fdl, False, draws, True)
                     + gan(rdl, True, draws, True))
@@ -888,10 +881,10 @@ class StepBuilder:
     # ------------------------------------------------------------------
     def _rows(self, micro: List[Batch], devices) -> List[Batch]:
         """The micro-batches, each split by rows over ``devices`` where
-        there are several (the options checked first)."""
+        there are several (the configuration checked first)."""
         if devices is None or len(devices) < 2:
             return micro
-        check_row_sharded_step(self.opts, self.vgg is not None)
+        check_row_sharded_step(self.opts)
         return [shard_rows(mb, devices) for mb in micro]
 
     @distributed.sharded_batch()

@@ -18,9 +18,9 @@ forward or a kernel: the evaluation and its panels run ``spade_cond`` and
 logger (comet, the PNG writer) is skipped when absent. With
 ``train.fid.enable`` the evaluation also logs the painter's FID
 (``compute_val_fid``). Options that are not ported raise a ``ValueError``
-at ``setup`` naming their ROADMAP item: under row shards KITTI
-pretraining and the step options of ``check_row_sharded_step`` (A.11b-2b);
-an orbax run dir raises where it would be loaded (A.11d).
+at ``setup`` naming their ROADMAP item: under row shards a generator
+configuration other than the default (``check_row_sharded_step``,
+A.11b-3); an orbax run dir raises where it would be loaded (A.11d).
 
 Data parallel (one process per rank, ``python -m torch.distributed.run``):
 the data axis is the process group (``tpu.mesh.data`` is -1 or its size,
@@ -38,10 +38,11 @@ by the JAX trainer's rule (``mesh.spatial_devices``: rank r of a node owns
 cards [r k, (r + 1) k), so ``torch.distributed.run --nproc_per_node
 <cards / k>`` trains data x space; the CPU holds all k shards). Where k
 does not divide the rank's cards the trainer prints JAX's message and
-trains unsharded. The models, the state and the
-checkpoint are one set on the first shard's device, so a sharded run
-resumes unsharded and the other way round; the evaluation, the panels and
-FID run unsharded there, as JAX's ``run_evaluation`` does.
+trains unsharded. Every step option runs sharded, and KITTI pretraining's
+epochs too (the kitti batch's rows split as any domain's). The models, the
+state and the checkpoint are one set on the first shard's device, so a
+sharded run resumes unsharded and the other way round; the evaluation, the
+panels and FID run unsharded there, as JAX's ``run_evaluation`` does.
 
 Each epoch adds one record to ``train.jsonl``: the steps, the epoch's
 seconds, the seconds spent waiting on the loader and each step's host
@@ -88,28 +89,13 @@ from climategan_torch.utils.opts import load_opts
 BOTH = ("masker", "painter")
 
 
-def _vgg_wanted(opts) -> bool:
-    """Whether the trainer would build a VGG for the perceptual loss
-    (``Trainer._maybe_vgg``)."""
-    if float(opts.train.lambdas.G.p.vgg) == 0 or "p" not in opts.tasks:
-        return False
-    path = opts.get("vgg_weights") or None
-    return bool(path and Path(str(path)).exists()) or bool(
-        opts.train.get("allow_random_vgg", False))
-
-
 def refuse_unported_trainer(opts) -> None:
-    """Raises a ``ValueError`` naming its ROADMAP item for each trainer
-    option this port does not have (under row shards: KITTI pretraining
-    and ``check_row_sharded_step``'s step options, A.11b-2b; another
-    generator configuration raises ``check_rows``'s A.11b-3), and for a
-    mesh that the process group cannot give (``check_data_axis``)."""
+    """Raises for a generator configuration that row shards
+    (``tpu.spatial_shards`` > 1) do not take (``check_rows``'s
+    ``NotImplementedError`` naming ROADMAP A.11b-3), and a ``ValueError``
+    for a mesh that the process group cannot give (``check_data_axis``)."""
     if spatial_shards(opts) > 1:
-        if opts.train.kitti.get("pretrain"):
-            raise ValueError("row-sharded training (tpu.spatial_shards > 1) "
-                             "does not take train.kitti.pretrain yet "
-                             "(ROADMAP A.11b-2b)")
-        check_row_sharded_step(opts, _vgg_wanted(opts))
+        check_row_sharded_step(opts)
     check_data_axis(opts, distributed.world())
 
 

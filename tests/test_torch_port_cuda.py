@@ -991,3 +991,31 @@ def test_tiny_row_sharded_step_on_the_card_matches_the_cpu():
         other = "D" if net == "G" else "G"
         hold_state(getattr(got, other), getattr(want, other).state_dict(),
                    what=f"{name} {other}")
+
+
+@pytest.mark.parametrize("sharded", [False, True])
+def test_discriminator_pool_gradient_of_a_channels_last_input(sharded):
+    """The painter D's pyramid pool (``avg_pool_3x3_s2``) on the paste's
+    NHWC-strided output, whole and over 2 row shards: the input gradient
+    equals the one of the same values in NCHW-contiguous memory (float64
+    within 1e-12). PyTorch's CUDA backward of an overlapping average pool
+    is wrong for a channels-last input; the port makes the input
+    contiguous first."""
+    from climategan_torch.models.discriminator import avg_pool_3x3_s2
+    from climategan_torch.parallel import spatial
+
+    dev = _device()
+    x = torch.rand(2, 3, 32, 32, dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(0)).to(dev)
+    up = torch.rand(2, 3, 16, 16, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    grads = []
+    for t in (x.clone(), x.permute(0, 2, 3, 1).contiguous().permute(
+            0, 3, 1, 2)):
+        t.requires_grad_(True)
+        y = avg_pool_3x3_s2(spatial.split_rows(t, [dev] * 2) if sharded
+                            else t)
+        if sharded:
+            y = y.gather(dev)
+        grads.append(torch.autograd.grad((y * up).sum(), t)[0])
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-12

@@ -63,6 +63,7 @@ from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
     GRADE_MEANS,
     grade_edge_planes,
     nchw,
+    once_per_session,
     one_thread,
     smog_edge_planes,
     tiny_pair,
@@ -258,7 +259,15 @@ SHARDS = (2, 3, 4)
 
 
 @pytest.fixture(scope="module")
-def infer_runs():
+def infer_runs(tmp_path_factory):
+    """JAX's ``infer`` of all three events and the port's, whole and over
+    2, 3 and 4 row shards, with the sky masks: numpy, computed once per
+    session (``once_per_session``)."""
+    return once_per_session(tmp_path_factory, "torch_port_infer_runs",
+                            _infer_runs)
+
+
+def _infer_runs():
     jopts, topts, G, V, _ = tiny_pair(64, seed=3)
     x = np.random.default_rng(4).uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
     rng = jax.random.PRNGKey(5)

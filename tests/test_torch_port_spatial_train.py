@@ -9,19 +9,31 @@ x two shards to one process).
   input and weight gradients equal to the unsharded ones, over 2 and 3
   shards, on maps whose 3-shard split leaves a shard without rows;
 - each loss on rows against the whole map, value and gradient;
+- the step options' pieces on rows (each diff-aug transform, the gradient
+  penalty, ``VGG19Features`` and the VGG loss), value and gradient;
 - the three discriminators' row forwards with their features;
 - ``g_step`` and ``d_step`` over 2 and 3 shards against the unsharded
-  step, ``train.grad_accumulation: 2`` over 2 shards;
-- a trainer epoch on two shards through the CLI, resumed unsharded;
-- JAX's fallback rule and message, and every refusal (ROADMAP A.11b-2b).
+  step, ``train.grad_accumulation: 2`` over 2 shards; each step option
+  alone over 2 shards, all of them together over 3, remat under each
+  policy over 2 (saving the convolutions the unsharded step saves);
+- a trainer epoch on two shards through the CLI, resumed unsharded; a
+  KITTI pretraining epoch and a normal one on two shards against the
+  unsharded trainer's;
+- JAX's fallback rule and message, and what is still refused (ROADMAP
+  A.11b-3, the mesh axes).
 
 Bars: float64 throughout, so the sharded and unsharded ops differ only by
 the order of float64 sums: ops and losses within 1e-10 relative (1e-12
 absolute); the steps (float64 models and batch; the spectral sigma, the
 paste's dtype and the optimizer's moments stay f32 on both sides) losses
 within 1e-6 relative and the models held by ``step_check.hold_state``.
+The maps are 7 rows high (3 shards: 2, 2, 3) except where an op needs
+more: the VGG's four 2x2 pools (19 rows: the deepest slice is one row, so
+two of three shards hold none) and the ADVENT D's five stride-2 convs (35
+rows).
 """
 import copy
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,25 +44,29 @@ from climategan_torch import bench_train
 from climategan_torch import losses as L
 from climategan_torch.models.blocks import Conv2dBlock
 from climategan_torch.models.discriminator import (
+    DisConfig,
     FCDiscriminator,
     MultiscaleDiscriminator,
     NLayerDiscriminator,
     avg_pool_3x3_s2,
+    create_discriminator,
 )
+from climategan_torch.models.generator import GenConfig, create_generator
 from climategan_torch.models.norms import (
     BatchNorm2d,
     SNConv,
     init_weights,
     instance_norm,
 )
+from climategan_torch.ops import diff_aug
 from climategan_torch.parallel import distributed, spatial
 from climategan_torch.parallel.mesh import (
     fallback_message,
     spatial_devices,
 )
-from climategan_torch.train_step import StepBuilder
+from climategan_torch.train_step import _CONVS, StepBuilder
 from climategan_torch.trainer import Trainer, refuse_unported_trainer
-from climategan_torch.utils.opts import load_opts
+from climategan_torch.utils.opts import load_opts, merge
 from climategan_torch.utils.step_check import (
     TINY_OVERRIDES,
     first_moments,
@@ -260,6 +276,71 @@ def test_gan_and_feature_matching_losses_on_patch_maps():
     _check(fn, flat, what="gan and feature matching")
 
 
+# ---- the step options' pieces -----------------------------------------------
+
+# diff-aug draws for 3 samples of 7 x 6: translations up to 4 rows (more
+# than a shard's 2 or 3 rows), cutouts of 4 x 3
+AUG = diff_aug.DiffTransforms(True, True, True, translation_ratio=0.5)
+AUG_DRAWS = AUG.draw(3, 7, 6, torch.Generator().manual_seed(5))
+
+
+def _vgg():
+    torch.manual_seed(6)
+    return L.VGG19Features().double().eval().requires_grad_(False)
+
+
+def _fc_d():
+    D = FCDiscriminator(2, 8, use_norm=False).double()
+    init_weights(D, torch.Generator().manual_seed(8))
+    return D
+
+
+def _aug_case(fn, seed):
+    return lambda: (fn, [_rand(3, 3, 7, 6, seed=seed)], ())
+
+
+def _wgan_gp_case():
+    D = _fc_d()
+    return ((lambda x: L.wgan_gp(D, x)), [_rand(2, 2, 35, 32, seed=36).abs()],
+            list(D.parameters()))
+
+
+def _vgg_loss_case():
+    vgg = _vgg()
+    return ((lambda x, y: L.vgg_loss(vgg, L.vgg_preprocess(x),
+                                     L.vgg_preprocess(y))),
+            [_rand(2, 3, 19, 16, seed=38), _rand(2, 3, 19, 16, seed=39)], ())
+
+
+# name: () -> (fn, inputs, the parameters whose gradients are held too)
+OPTION_OPS = {
+    "brightness": _aug_case(lambda x: diff_aug.rand_brightness(
+        x, AUG_DRAWS["brightness"]), 30),
+    "contrast": _aug_case(lambda x: diff_aug.rand_contrast(
+        x, AUG_DRAWS["contrast"]), 31),
+    "saturation": _aug_case(lambda x: diff_aug.rand_saturation(
+        x, AUG_DRAWS["saturation"]), 32),
+    "translation": _aug_case(lambda x: diff_aug.rand_translation(
+        x, AUG_DRAWS["tx"], AUG_DRAWS["ty"]), 33),
+    "cutout": _aug_case(lambda x: diff_aug.rand_cutout(
+        x, AUG_DRAWS["ox"], AUG_DRAWS["oy"]), 34),
+    "DiffTransforms": _aug_case(lambda x: AUG(x, AUG_DRAWS), 35),
+    "wgan_gp": _wgan_gp_case,
+    "VGG19Features": lambda: (_vgg(), [_rand(2, 3, 19, 16, seed=37)], ()),
+    "vgg_loss": _vgg_loss_case,
+}
+
+
+@pytest.mark.parametrize("name", list(OPTION_OPS))
+def test_step_option_op_on_rows_matches_the_whole_map(name):
+    """Each diff-aug transform (and all of them in turn), the gradient
+    penalty (its gradient in the ADVENT D's weights: a second-order
+    product through every shard), the VGG's five slices and the VGG loss
+    on rows: values and gradients against the whole map's."""
+    fn, inputs, params = OPTION_OPS[name]()
+    _check(fn, inputs, params, name)
+
+
 # ---- the discriminators -----------------------------------------------------
 
 DISCS = {
@@ -305,17 +386,49 @@ def _f64(batch):
                 for k, v in b.items()} for d, b in batch.items()}
 
 
-def _steps(opts, batch, devices=None):
-    """g_step, then d_step, each from the seed-0 state in float64."""
-    builder = StepBuilder(opts)
-    state = builder.init_state(0, "cpu")
-    G0, D0 = state.G.double(), state.D.double()
+STEPS = ("g_step", "d_step")
+
+
+# the float64 seed-0 models by configuration, built once for the module
+_SEED0 = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _drop_seed0_models():
+    yield
+    _SEED0.clear()
+
+
+def _seed0(opts):
+    """``init_state(0)``'s G and D of ``opts`` in float64, each built once
+    a configuration."""
+    for key, make in ((GenConfig.from_opts(opts), create_generator),
+                      (DisConfig.from_opts(opts), create_discriminator)):
+        if key not in _SEED0:
+            seed = 0 if make is create_generator else 1
+            _SEED0[key] = make(opts, seed).double().train()
+    return (_SEED0[GenConfig.from_opts(opts)],
+            _SEED0[DisConfig.from_opts(opts)])
+
+
+def _steps(opts, batch, devices=None, names=STEPS, vgg=None, policy=None):
+    """Each step of ``names`` (g_step, d_step) from the seed-0 state in
+    float64; ``vgg``: the perceptual loss's; ``policy``: a remat policy in
+    place of the opts'. Returns the builder and, of each step, (name, G, D,
+    metrics, the stepped model's first moments): the optimizer states'
+    other moments are dropped (a float64 state is about 1 GB)."""
+    builder = StepBuilder(opts, vgg=vgg)
+    if policy is not None:
+        builder.remat_policy = policy
+    G0, D0 = _seed0(opts)
     out = []
-    for name, draws in zip(("g_step", "d_step"), DRAWS):
+    for name in names:
+        i = STEPS.index(name)
         st = builder.state_for(copy.deepcopy(G0), copy.deepcopy(D0))
-        st, metrics = getattr(builder, name)(st, batch, draws=draws,
+        st, metrics = getattr(builder, name)(st, batch, draws=DRAWS[i],
                                              devices=devices)
-        out.append((st, metrics))
+        mu = first_moments((st.G, st.D)[i], (st.g_opt, st.d_opt)[i])
+        out.append((name, st.G, st.D, metrics, mu))
     return builder, out
 
 
@@ -327,23 +440,20 @@ def unsharded():
 
 
 def _hold_steps(builder, got, want, what):
-    for i, ((gs, gm), (ws, wm)) in enumerate(zip(got, want)):
+    for (name, gG, gD, gm, gmu), (wname, wG, wD, wm, wmu) in zip(got, want):
+        assert name == wname
         assert set(gm) == set(wm)
         for key, v in wm.items():
             np.testing.assert_allclose(float(gm[key]), float(v), rtol=1e-6,
                                        atol=1e-12, err_msg=f"{what} {key}")
-        stepped = ("G", "D")[i]
-        for m in ("G", "D"):
-            mod, ref = getattr(gs, m), getattr(ws, m)
-            if m == stepped:
-                opt = "g_opt" if m == "G" else "d_opt"
+        i = STEPS.index(name)
+        for j, (m, mod, ref) in enumerate((("G", gG, wG), ("D", gD, wD))):
+            if j == i:
                 print(hold_state(mod, ref.state_dict(),
-                                 (builder.g_lr, builder.d_lr)[i],
-                                 first_moments(mod, getattr(gs, opt)),
-                                 first_moments(ref, getattr(ws, opt)),
-                                 what=f"{what} {m}"))
+                                 (builder.g_lr, builder.d_lr)[i], gmu, wmu,
+                                 what=f"{what} {name} {m}"))
             else:
-                hold_state(mod, ref.state_dict(), what=f"{what} {m}")
+                hold_state(mod, ref.state_dict(), what=f"{what} {name} {m}")
 
 
 @pytest.mark.parametrize("k", SHARDS)
@@ -366,6 +476,128 @@ def test_grad_accumulation_over_two_shards():
     _, want = _steps(opts, batch)
     builder, got = _steps(opts, batch, ["cpu"] * 2)
     _hold_steps(builder, got, want, "accumulated")
+
+
+# ---- the step options on rows ----------------------------------------------
+
+DIFF_AUG = {"use": True, "do_color_jittering": True, "do_cutout": True,
+            "do_translation": True}
+# option: (overrides, the steps it changes: pl4m and the VGG loss are terms
+# of the G step only, whose D step is the default's)
+OPTIONS = {
+    "use_local_discriminator": (
+        {"dis": {"p": {"use_local_discriminator": True}}}, STEPS),
+    "use_pl4m": ({"gen": {"m": {"use_pl4m": True}}}, ("g_step",)),
+    "WGAN_gp": ({"dis": {"m": {"gan_type": "WGAN_gp"},
+                         "s": {"gan_type": "WGAN_gp"}}}, STEPS),
+    "diff_aug": ({"gen": {"p": {"diff_aug": DIFF_AUG}}}, STEPS),
+    "VGG": ({}, ("g_step",)),
+}
+
+
+def _option_opts(*overrides):
+    opts = load_opts(commandline_opts=TINY_OVERRIDES)
+    for over in overrides:
+        merge(copy.deepcopy(over), opts)
+    return opts
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_step_option_over_two_shards_matches_the_unsharded(option):
+    """Each step option alone at tiny_opts(32), batch 2 a domain: the
+    local painter D (p_global and p_local on rows, JAX's order of D calls),
+    pl4m (the frozen painter on rows, its paste per shard), WGAN-GP on both
+    ADVENT Ds (each sample's gradient norm over both shards), diff-aug (the
+    step's draws from the state's generator) and the VGG loss (a random
+    float64 VGG on rows): the steps it changes over 2 shards against the
+    unsharded ones, every loss within 1e-6 and both models held."""
+    over, names = OPTIONS[option]
+    opts = _option_opts(over)
+    vgg = _vgg() if option == "VGG" else None
+    batch = _f64(bench_train.synthetic_batch(2, 32, 32, "cpu", seed=0))
+    _, want = _steps(opts, batch, names=names, vgg=vgg)
+    builder, got = _steps(opts, batch, ["cpu"] * 2, names=names, vgg=vgg)
+    assert {"use_pl4m": "m_pl4m", "VGG": "p_vgg", "WGAN_gp": "m_gp_s"}.get(
+        option, "g_total") in {k for _, _, _, m, _ in got for k in m}
+    _hold_steps(builder, got, want, option)
+
+
+# remat's small_convs area at 32^2: a 16 x 16 map (256) is over it, the
+# 10 x 16 window of a 3x3 conv on one of its 2 shards (160) under it
+REMAT_AREA = 200
+REMAT = {"tpu": {"remat": True, "remat_d": True}}
+_CONVS_OP = next(iter(_CONVS))
+
+
+def test_all_step_options_over_three_shards_match_the_unsharded():
+    """Every option at once over 3 shards (uneven: the os8 maps 1, 1 and 2
+    rows, the painter's first map 0, 0 and 1): the local painter D, pl4m,
+    WGAN-GP, diff-aug, the VGG loss, and remat and remat_d under
+    small_convs."""
+    opts = _option_opts(*(o for o, _ in OPTIONS.values()), REMAT, {
+        "tpu": {"remat_policy": f"small_convs:{REMAT_AREA}"}})
+    vgg = _vgg()
+    batch = _f64(bench_train.synthetic_batch(2, 32, 32, "cpu", seed=0))
+    _, want = _steps(opts, batch, vgg=vgg)
+    builder, got = _steps(opts, batch, ["cpu"] * 3, vgg=vgg)
+    _hold_steps(builder, got, want, "all options, 3 shards")
+
+
+def _recording(policy, seen):
+    """``policy`` that records (the conv's weight shape, the area it
+    decided by, the input's own area, its decision) for every
+    convolution."""
+    def decide(op, *args):
+        keep = policy(op, *args)
+        if op in _CONVS:
+            h, w = args[0].shape[-2:]
+            whole = spatial.whole_area()
+            seen.add((tuple(args[1].shape), h * w if whole is None else whole,
+                      h * w, keep))
+        return keep
+    return decide
+
+
+@pytest.fixture(scope="module")
+def remat_convs():
+    """The convolutions of the unsharded remat g_step and d_step: (weight
+    shape, input area)."""
+    from climategan_torch.train_step import make_remat_policy
+
+    seen = set()
+    opts = _option_opts(REMAT, {"tpu": {"remat_policy": "dots"}})
+    batch = _f64(bench_train.synthetic_batch(2, 32, 32, "cpu", seed=0))
+    _steps(opts, batch, policy=_recording(make_remat_policy("dots"), seen))
+    return {(shape, area) for shape, area, _, _ in seen}
+
+
+@pytest.mark.parametrize("policy", ["", "dots", f"small_convs:{REMAT_AREA}"])
+def test_remat_over_two_shards_saves_the_unsharded_convs(unsharded,
+                                                         remat_convs, policy):
+    """``tpu.remat`` and ``tpu.remat_d`` over 2 shards under each policy:
+    the steps held to the unsharded (plain) steps, which a remat step
+    equals; the policy decides each convolution by the whole map's area,
+    so the sharded step saves exactly the convolutions the unsharded one
+    saves (under small_convs some windows fall under the area where their
+    whole maps do not)."""
+    from climategan_torch.train_step import make_remat_policy
+
+    _, batch, (_, want) = unsharded
+    opts = _option_opts(REMAT, {"tpu": {"remat_policy": policy}})
+    pol = make_remat_policy(policy)
+    seen = set()
+    builder, got = _steps(opts, batch, ["cpu"] * 2, policy=None if pol is None
+                          else _recording(pol, seen))
+    assert builder.remat and builder.remat_d
+    _hold_steps(builder, got, want, f"remat {policy!r}, 2 shards")
+    if pol is None:
+        return  # nothing saved, sharded or not
+    saved = {(shape, area, keep) for shape, area, _, keep in seen}
+    assert saved == {(shape, area, pol(_CONVS_OP, torch.empty(1, 1, area, 1)))
+                     for shape, area in remat_convs}
+    if policy.startswith("small_convs"):
+        assert any(keep != pol(_CONVS_OP, torch.empty(1, 1, own, 1))
+                   for _, _, own, keep in seen)
 
 
 # ---- the trainer ------------------------------------------------------------
@@ -420,6 +652,77 @@ def test_trainer_epoch_on_two_shards_then_resume_unsharded(tmp_path,
     assert "does not divide" not in capsys.readouterr().out
 
 
+def _trainer_run(opts, devices):
+    """``Trainer.train`` on ``opts`` with the state and every batch in
+    float64 (its evaluation and checkpoint, which read f32, left out):
+    the step builder, G, D and their first moments, and each step's
+    (domains, devices, metrics)."""
+    trainer = Trainer(opts, device="cpu").setup()
+    assert trainer.shard_devices == devices
+    st = trainer.state
+    trainer.state = trainer.builder.state_for(st.G.double(), st.D.double(),
+                                              0)
+    real, seen = trainer.builder.train_step, []
+
+    def step(state, batch, *args, **kwargs):
+        state, metrics = real(state, _f64(batch), *args, **kwargs)
+        seen.append((sorted(batch), kwargs.get("devices"), metrics))
+        return state, metrics
+
+    ckpt = opts.output_path + ".ckpt"
+    open(ckpt, "w").close()
+    trainer.builder.train_step = step
+    trainer.run_evaluation = dict
+    trainer.save = lambda: Path(ckpt)
+    trainer.train()
+    st = trainer.state
+    return (trainer.builder, st.G, st.D, first_moments(st.G, st.g_opt),
+            first_moments(st.D, st.d_opt)), seen
+
+
+def test_kitti_pretraining_epoch_on_two_shards_matches_the_unsharded(
+        tmp_path):
+    """``train.kitti.pretrain`` (one KITTI epoch, then a normal one) with
+    ``tpu.spatial_shards: 2``: the KITTI batch (domain s items) splits by
+    rows as any domain's; both epochs' steps equal the unsharded trainer's
+    (losses within 1e-6, G and D held by ``hold_state`` after the second
+    epoch), in float64 on the trainer's own batches (the transforms' draws
+    from the global ``random``, seeded alike before each run)."""
+    import random
+
+    from tests.torch_port_common import opts_pair, write_dataset
+
+    lists = write_dataset(tmp_path / "data", kitti=2)
+    _, topts = opts_pair(lists, bf16=False, kitti={
+        "pretrain": True, "epochs": 1, "batch_size": 2})
+    topts.domains = list(topts.domains) + ["kitti"]
+    topts.train.lambdas.G.p.vgg = 0
+    topts.data.max_samples = 2
+    topts.train.epochs = 2
+    runs = {}
+    for k in (1, 2):
+        opts = copy.deepcopy(topts)
+        opts.tpu.spatial_shards = k
+        opts.output_path = str(tmp_path / f"run{k}")
+        random.seed(0)
+        runs[k] = _trainer_run(opts, None if k == 1
+                               else [torch.device("cpu")] * 2)
+    (want, want_seen), (got, got_seen) = runs[1], runs[2]
+    assert [s[:2] for s in got_seen] == [
+        (["s"], [torch.device("cpu")] * 2),
+        (["r", "rf", "s"], [torch.device("cpu")] * 2)]
+    for (_, _, gm), (_, _, wm) in zip(got_seen, want_seen):
+        assert set(gm) == set(wm)
+        for key, v in wm.items():
+            np.testing.assert_allclose(float(gm[key]), float(v), rtol=1e-6,
+                                       atol=1e-12, err_msg=key)
+    (b, gG, gD, g_mu, d_mu), (_, wG, wD, wg_mu, wd_mu) = got, want
+    print(hold_state(gG, wG.state_dict(), b.g_lr, g_mu, wg_mu,
+                     what="kitti G"))
+    print(hold_state(gD, wD.state_dict(), b.d_lr, d_mu, wd_mu,
+                     what="kitti D"))
+
+
 def test_fallback_rule_and_message(monkeypatch, capsys):
     """JAX's rule over the cards a rank owns: rank r of a node owns cards
     [r k, (r + 1) k) and shards there when all k exist; else the trainer
@@ -453,36 +756,36 @@ def test_fallback_rule_and_message(monkeypatch, capsys):
 
 
 def test_refusals(tmp_path):
-    """Each step option that row shards do not take, and KITTI
-    pretraining, raises at the trainer's setup naming ROADMAP A.11b-2b;
-    the step refuses them too; another generator configuration raises
-    A.11b-3; a tpu.mesh.space other than tpu.spatial_shards raises."""
+    """Each step option and KITTI pretraining (ROADMAP A.11b-2b) is taken
+    under row shards: ``refuse_unported_trainer`` accepts each, sharded or
+    not, and ``g_step(devices=...)`` takes every step option at once;
+    another generator configuration raises A.11b-3; a tpu.mesh.space other
+    than tpu.spatial_shards raises."""
     base = {"tpu": {"spatial_shards": 2}}
-    refused = {
+    taken = {
         "use_local_discriminator": {"dis": {"p": {
             "use_local_discriminator": True}}},
         "use_pl4m": {"gen": {"m": {"use_pl4m": True}}},
         "WGAN_gp": {"dis": {"m": {"gan_type": "WGAN_gp"}}},
         "diff_aug": {"gen": {"p": {"diff_aug": {"use": True}}}},
-        "tpu.remat yet": {"tpu": {"spatial_shards": 2, "remat": True}},
+        "tpu.remat": {"tpu": {"spatial_shards": 2, "remat": True}},
         "tpu.remat_d": {"tpu": {"spatial_shards": 2, "remat_d": True}},
         "VGG": {"train": {"allow_random_vgg": True}},
         "kitti.pretrain": {"train": {"kitti": {"pretrain": True}}},
     }
-    for name, over in refused.items():
+    for name, over in taken.items():
         opts = load_opts(commandline_opts={**base, **over})
-        with pytest.raises(ValueError, match="A.11b-2b") as err:
-            refuse_unported_trainer(opts)
-        assert name in str(err.value), (name, str(err.value))
+        refuse_unported_trainer(opts)
         opts.tpu.spatial_shards = 1
-        refuse_unported_trainer(opts)  # unsharded, each option is ported
-    opts = load_opts(commandline_opts={**TINY_OVERRIDES,
-                                       "gen": {"m": {"use_pl4m": True}}})
-    builder = StepBuilder(opts)
+        refuse_unported_trainer(opts)
+    opts = _option_opts(*(o for o, _ in OPTIONS.values()), REMAT)
+    torch.manual_seed(6)
+    builder = StepBuilder(opts, vgg=L.VGG19Features())
     state = builder.init_state(0, "cpu")
     batch = bench_train.synthetic_batch(2, 32, 32, "cpu", seed=0)
-    with pytest.raises(ValueError, match="gen.m.use_pl4m"):
-        builder.g_step(state, batch, devices=["cpu"] * 2)
+    _, metrics = builder.g_step(state, batch, devices=["cpu"] * 2)
+    assert {"m_pl4m", "p_vgg", "p_gan"} <= set(metrics)
+    assert all(torch.isfinite(v) for v in metrics.values())
     opts = load_opts(commandline_opts={**base,
                                        "gen": {"p": {"no_z": False}}})
     with pytest.raises(NotImplementedError, match="A.11b-3"):

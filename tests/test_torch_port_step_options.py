@@ -21,6 +21,10 @@ drawn here with ``jax.random`` from the step's key as the JAX step draws
 them (``fold_in(rng, 7)``, split into the painter output's and the real
 image's keys, each split in five).
 
+The combined step also runs row-sharded over two shards (ROADMAP
+A.11b-2b) against the same JAX states; tests/test_torch_port_spatial_train
+.py holds each option on rows to the unsharded step in float64.
+
 Bars: every loss of the metrics within 1e-4 relative; the models after
 each step held to JAX's by ``hold_state`` (see tests/test_torch_port_train
 .py); diff-aug outputs within 1e-6; the gradient penalty and its gradient
@@ -60,8 +64,10 @@ from climategan_torch.utils.convert import (
 from climategan_torch.utils.opts import load_opts
 from climategan_torch.utils.step_check import first_moments, hold_state
 from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
+    ABOVE_THE_KINK,
     jax_d_variables,
     jax_variables,
+    once_per_session,
     one_thread,
     port_batch,
     step_draws,
@@ -174,21 +180,26 @@ def _run_jax(overrides, n, seed=0):
     k = int(jopts.train.get("grad_accumulation", 1) or 1)
     return dict(
         topts=load_opts(default=jopts.to_dict()), batch=batch,
-        states=(state0, state1, state2), metrics=(gm, dm),
+        states=(jax.tree_util.tree_map(np.asarray, state0), state1, state2),
+        metrics=(gm, dm),
         draws=step_draws(key, jb.cfg.soft_shift, jb.cfg.flip_prob),
         aug=(step_aug_draws(key, n // k, SIZE, SIZE)
              if jb.cfg.p_diff_aug_use else (None, None)),
         lr=(jb.g_lr, jb.d_lr))
 
 
+# each JAX run's numpy results are computed once per test session and
+# shared by the xdist workers (``once_per_session``)
 @pytest.fixture(scope="module")
-def combined():
-    return _run_jax(COMBINED, 2)
+def combined(tmp_path_factory):
+    return once_per_session(tmp_path_factory, "torch_port_combined",
+                            lambda: _run_jax(COMBINED, 2))
 
 
 @pytest.fixture(scope="module")
-def accumulated():
-    return _run_jax(ACCUMULATED, 4, seed=2)
+def accumulated(tmp_path_factory):
+    return once_per_session(tmp_path_factory, "torch_port_accumulated",
+                            lambda: _run_jax(ACCUMULATED, 4, seed=2))
 
 
 def _models(topts, jstate):
@@ -216,23 +227,27 @@ def _check_metrics(got, want):
                                    atol=1e-9, err_msg=k)
 
 
-def _hold_step(run, name):
-    """The port's ``name`` step from JAX's state before it, held to JAX's
-    state after it: the stepped model by its moments, the other one's
-    statistics and u/v advanced and its parameters untouched."""
+def _hold_step(run, name, devices=None, held=None):
+    """The port's ``name`` step from JAX's state before it (over the row
+    shards' ``devices``, if given), held to JAX's state after it: the
+    stepped model by its moments (its parameters ``held``, default all),
+    the other one's statistics and u/v advanced and its parameters
+    untouched."""
     i = 0 if name == "g_step" else 1
     G, D = _models(run["topts"], run["states"][i])
     builder = StepBuilder(run["topts"])
     state, metrics = getattr(builder, name)(
         builder.state_for(G, D), port_batch(run["batch"]),
-        draws=run["draws"][i], aug=run["aug"][i])
+        draws=run["draws"][i], aug=run["aug"][i], devices=devices)
     _check_metrics(metrics, run["metrics"][i])
     want = _models(run["topts"], run["states"][i + 1])
     mu = _moments(run["topts"], run["states"][i + 1])[i]
     got = (G, D)
     opt = (state.g_opt, state.d_opt)[i]
+    what = f"{name} {'GD'[i]}" + ("" if devices is None
+                                    else f" over {len(devices)} shards")
     print(hold_state(got[i], want[i].state_dict(), run["lr"][i],
-                     first_moments(got[i], opt), mu, what=f"{name} {'GD'[i]}"))
+                     first_moments(got[i], opt), mu, what=what, held=held))
     hold_state(got[1 - i], want[1 - i].state_dict(),
                what=f"{name} {'GD'[1 - i]}")
     return metrics
@@ -243,6 +258,23 @@ def test_combined_options_match_jax(combined, name):
     """Local D + pl4m + WGAN-GP (m and s) + DiffAugment: each step's
     losses (pl4m's, the penalties) and models against JAX's."""
     metrics = _hold_step(combined, name)
+    assert {"g_step": "m_pl4m", "d_step": "m_gp_s"}[name] in metrics
+
+
+@pytest.mark.parametrize("name", ["g_step", "d_step"])
+def test_combined_options_over_two_shards_match_jax(combined, name):
+    """The same steps row-sharded (ROADMAP A.11b-2b), each image's rows
+    over ["cpu"] * 2: the local Ds, pl4m's frozen painter, the penalties'
+    norms and the augmentation on rows, held to JAX's states at the same
+    bars: all of D, and G above the layer3.0 ReLU kink that the split's
+    batch norms (float64 sums over the shards) cross on this seed-0 batch
+    as on tests/test_torch_port_train.py's (layer3.0's bn3 and downsample
+    first moments 4.7-5.5% of their largest from JAX's; every other leaf
+    of G within 6e-3). tests/test_torch_port_spatial_train.py holds all of
+    G against the unsharded step in float64."""
+    held = (lambda k: k.startswith(ABOVE_THE_KINK)) if name == "g_step" \
+        else None
+    metrics = _hold_step(combined, name, devices=["cpu"] * 2, held=held)
     assert {"g_step": "m_pl4m", "d_step": "m_gp_s"}[name] in metrics
 
 
@@ -266,23 +298,26 @@ def test_two_gloo_ranks_accumulate_as_jax_does_on_the_global_batch(
     ``tpu.remat_d``: each held by ``hold_state`` to the one-process remat
     step from the same state on the global batch, so the rematerialized
     forwards' batch norms take their collectives as the first forwards
-    do."""
+    do; and those remat steps hybrid, each rank's rows over two row
+    shards (ROADMAP A.11b-2b), held to the same one-process steps."""
     run = accumulated
     remat_opts = load_opts(default=_jopts({**ACCUMULATED, "tpu": {
         "remat": True, "remat_d": True}}).to_dict())
     jobs = []
-    for extra in ((), (remat_opts,)):
+    for extra, rows in (((), {}), ((remat_opts,), {}),
+                        ((remat_opts,), {"devices": ["cpu", "cpu"]})):
         for i, name in enumerate(("g_step", "d_step")):
             G, D = _models(run["topts"], run["states"][i])
             jobs.append((name, G.state_dict(), D.state_dict(),
-                         {"draws": run["draws"][i], "aug": run["aug"][i]},
-                         *extra))
+                         {"draws": run["draws"][i], "aug": run["aug"][i],
+                          **rows}, *extra))
     got = run_ranks("tests.torch_port_ranks:steps", 2,
                     {"opts": run["topts"], "batch": port_batch(run["batch"]),
                      "jobs": jobs},
-                    devices=["cpu", "cpu"], backend="gloo", timeout=180)
+                    devices=["cpu", "cpu"], backend="gloo", timeout=240)
     assert [r["digest"] for r in got[1]] == [r["digest"] for r in got[0]]
-    _hold_remat_ranks(run, remat_opts, got[0][2:])
+    _hold_remat_ranks(run, remat_opts, {"2 ranks": got[0][2:4],
+                                        "2 ranks x 2 shards": got[0][4:6]})
     for i, (name, res) in enumerate(zip(("g_step", "d_step"), got[0])):
         _check_metrics(res["metrics"], run["metrics"][i])
         G, D = _models(run["topts"], run["states"][i])
@@ -299,30 +334,32 @@ def test_two_gloo_ranks_accumulate_as_jax_does_on_the_global_batch(
 
 
 def _hold_remat_ranks(run, remat_opts, results):
-    """The two ranks' remat g_step and d_step (rank 0's ``results``), each
-    from JAX's state before it, against the one-process remat steps from
-    the same states on the global batch: losses within 1e-4 relative, the
-    stepped model by ``hold_state`` with its first moments, the other one
-    by ``hold_state`` without."""
+    """The ranks' remat g_step and d_step (rank 0's, by layout in
+    ``results``), each from JAX's state before it, against the one-process
+    remat steps from the same states on the global batch: losses within
+    1e-4 relative, the stepped model by ``hold_state`` with its first
+    moments, the other one by ``hold_state`` without."""
     builder = StepBuilder(remat_opts)
     assert builder.remat and builder.remat_d
-    for i, (name, res) in enumerate(zip(("g_step", "d_step"), results)):
+    for i, name in enumerate(("g_step", "d_step")):
         G, D = _models(run["topts"], run["states"][i])
         state, metrics = getattr(builder, name)(
             builder.state_for(G, D), port_batch(run["batch"]),
             draws=run["draws"][i], aug=run["aug"][i])
-        _check_metrics(res["metrics"],
-                       {k: float(v) for k, v in metrics.items()})
-        got = _models(run["topts"], run["states"][i])
-        got[0].load_state_dict(res["G"])
-        got[1].load_state_dict(res["D"])
         want = (G, D)
         mu = first_moments(want[i], (state.g_opt, state.d_opt)[i])
-        print(hold_state(got[i], want[i].state_dict(), run["lr"][i],
-                         (res["g_mu"], res["d_mu"])[i], mu,
-                         what=f"remat {name} on 2 ranks"))
-        hold_state(got[1 - i], want[1 - i].state_dict(),
-                   what=f"remat {name} on 2 ranks, the other model")
+        for layout, pair in results.items():
+            res = pair[i]
+            _check_metrics(res["metrics"],
+                           {k: float(v) for k, v in metrics.items()})
+            got = _models(run["topts"], run["states"][i])
+            got[0].load_state_dict(res["G"])
+            got[1].load_state_dict(res["D"])
+            print(hold_state(got[i], want[i].state_dict(), run["lr"][i],
+                             (res["g_mu"], res["d_mu"])[i], mu,
+                             what=f"remat {name} on {layout}"))
+            hold_state(got[1 - i], want[1 - i].state_dict(),
+                       what=f"remat {name} on {layout}, the other model")
 
 
 # ---- the pieces alone --------------------------------------------------

@@ -7,7 +7,8 @@ TPU rewrites are off there (``tpu.painter_s2d`` and ``FUSED_REFLECT``,
 which ``tests/test_s2d.py`` shows give the same values); the port has
 neither, and the graph then compiles in about 30 s instead of 65. The JAX
 draws come from splitting the state's key as the two steps do, and reach
-the port through ``draws=``.
+the port through ``draws=``. Its numpy results are computed once per test
+session and shared by the xdist workers (``once_per_session``).
 
 Bars: every loss of the metrics within 1e-4 relative; the models after
 each step held to JAX's by ``climategan_torch.utils.step_check.hold_state``
@@ -44,9 +45,11 @@ from climategan_torch.utils.step_check import first_moments, hold_state
 from tests.test_torch_port_step_options import seeded_batch
 from tests.test_train_step import _batch
 from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
+    ABOVE_THE_KINK,
     gan_draws,
     jax_d_variables,
     jax_variables,
+    once_per_session,
     one_thread,
     port_batch,
     step_draws,
@@ -61,10 +64,16 @@ def _split(variables):
 
 
 @pytest.fixture(scope="module")
-def run():
+def run(tmp_path_factory):
     """The JAX states before, between and after the two steps, their
-    metrics, the draws, the batch, the port's opts and ``steps``: the
-    compiled steps from the same state on another batch."""
+    metrics, the draws, the batch, the port's opts and ``seeded``: the
+    compiled steps' outputs from the same state on ``seeded_batch(2, 2)``;
+    numpy trees, computed once per session (``once_per_session``)."""
+    return once_per_session(tmp_path_factory, "torch_port_train_run",
+                            _jax_run)
+
+
+def _jax_run():
     jopts = tiny_opts(SIZE)
     jopts.train.bf16 = False
     jopts.tpu.painter_s2d = False
@@ -95,13 +104,15 @@ def run():
             return jax.tree_util.tree_map(np.asarray, compiled(state0, batch))
 
         out = steps(batch)
+        seeded = steps(seeded_batch(2, 2))
     finally:
         jax_norms.FUSED_REFLECT = prev
     state1, gm, state2, dm, val = out
     topts = load_opts(default=jopts.to_dict())
     return dict(
-        topts=topts, batch=batch, states=(state0, state1, state2),
-        steps=steps,
+        topts=topts, batch=batch,
+        states=(jax.tree_util.tree_map(np.asarray, state0), state1, state2),
+        seeded=seeded,
         metrics=(gm, dm, val),
         eval_draws=gan_draws(jax.random.PRNGKey(0), jb.cfg.soft_shift,
                              jb.cfg.flip_prob),
@@ -189,10 +200,6 @@ def test_train_step_matches_jax(run):
                      what="D"))
 
 
-# the parts of G above the ReLU kink that the batch's split over two ranks
-# crosses (see the test below); the encoder below layer4 is held in full by
-# tests/test_torch_port_step_options.py's two-rank steps on another batch
-ABOVE_THE_KINK = ("encoder.layer4.", "decoders.", "painter.")
 
 
 def test_two_shard_train_step_matches_jax(run):
@@ -207,7 +214,7 @@ def test_two_shard_train_step_matches_jax(run):
     encoder.conv1's first moment 1.4e-3 of its largest from JAX's
     (ROADMAP C)."""
     batch = seeded_batch(2, 2)
-    _, gm, state2, dm, _ = run["steps"](batch)
+    _, gm, state2, dm, _ = run["seeded"]
     G, D = _models(run["topts"], run["states"][0])
     builder = StepBuilder(run["topts"])
     state, metrics = builder.train_step(builder.state_for(G, D),

@@ -439,18 +439,20 @@ def test_evaluation_logs_the_painters_fid(run, monkeypatch):
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"tpu": {"spatial_shards": 2, "remat": True}}, "ROADMAP A.11b"),
+    ({"tpu": {"spatial_shards": 2}, "gen": {"p": {"no_z": False}}},
+     "ROADMAP A.11b"),
     ({"tpu": {"mesh": {"data": 2}}}, "world size is 1"),
 ])
 def test_unported_options_are_refused(data, tmp_path, option, item):
-    """Row-sharded training with a step option not ported on rows names
-    ROADMAP A.11b-2b; a data axis of 2 in one process (world size 1) says
-    how to start the ranks."""
+    """Row-sharded training of a generator configuration without
+    row-sharded forwards (here a painter with z) names ROADMAP A.11b-3;
+    a data axis of 2 in one process (world size 1) says how to start the
+    ranks."""
     from climategan_torch.utils.opts import merge
 
     _, topts = _opts(data, tmp_path)
     merge(option, topts)
-    with pytest.raises(ValueError, match=item):
+    with pytest.raises((ValueError, NotImplementedError), match=item):
         Trainer(topts, device="cpu").setup()
 
 

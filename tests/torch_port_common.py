@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import functools
 import json
+import os
+import pickle
 
 import numpy as np
 import pytest
@@ -21,6 +23,35 @@ import torch
 from climategan_torch.models.generator import GenConfig, OmniGenerator
 from climategan_torch.utils.convert import state_dict_from_jax
 from climategan_torch.utils.opts import load_opts as torch_load_opts
+
+
+# the parts of G above the layer3.0 ReLU kink that a split of the seed-0
+# batch over two ranks or two row shards crosses (ROADMAP C); the encoder
+# below layer4 is held in full by tests/test_torch_port_step_options.py's
+# two-rank steps on another batch and by tests/test_torch_port_spatial_train
+# .py's float64 steps
+ABOVE_THE_KINK = ("encoder.layer4.", "decoders.", "painter.")
+
+
+def once_per_session(tmp_path_factory, name: str, make):
+    """``make()`` computed once per test session: under pytest-xdist the
+    first worker that takes the lock computes it and pickles it into the
+    session's base temp dir, and every other worker loads it (the
+    plugin's own recipe); without xdist, ``make()``. For the JAX results
+    of a module fixture, as numpy trees, which ``--dist load`` would
+    otherwise compute again in every worker that takes a test of its
+    file."""
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        return make()
+    from filelock import FileLock
+
+    path = tmp_path_factory.getbasetemp().parent / f"{name}.pkl"
+    with FileLock(str(path) + ".lock"):
+        if path.is_file():
+            return pickle.loads(path.read_bytes())
+        value = make()
+        path.write_bytes(pickle.dumps(value))
+    return value
 
 
 def jax_variables(opts, image_size: int, seed: int = 0):
