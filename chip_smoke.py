@@ -59,7 +59,7 @@ Phases, any failure exits non-zero:
      only); eval_masker's per-image path on
      2 photos at 640^2 equal to the metrics of a direct G.infer_masker;
      climategan_torch.bench
-     with --events all at batch 2, 8 and 32, one JSON line each
+     with --events all at batch 2 and 8, one JSON line each
      (gflops_per_image > 0, mfu <= 1.05);
   7. training (grad enabled), the default training step (g_step then
      d_step): (1) at tiny_opts(32)'s sizes in f32 (TF32 off), the card's
@@ -85,11 +85,11 @@ Phases, any failure exits non-zero:
      f32 masker + cloudy flood forward bit-equal to that of a fresh G
      loaded from the trained state_dict() (information: g_step and d_step
      timed apart, one step under torch.profiler, its device busy share and
-     top ops); (4) `python -m
-     climategan_torch.bench_train`, its JSON line (value > 0);
-  8. the trainer through its entry point: a synthetic dataset (8 train and
-     4 val samples per domain r, s, rf as 720x960 PNGs; s with Unity-coded
-     depth and integer seg labels) in a temp dir; `python -m
+     top ops); (4) climategan_torch.bench_train's main() in this process,
+     its JSON line (value > 0);
+  8. the trainer through its entry point: a synthetic dataset (8 train
+     samples per domain r, s, rf as 640x853 PNGs and 4 val ones at 640x640;
+     s with Unity-coded depth and integer seg labels) in a temp dir; `python -m
      torch.distributed.run --standalone --nproc_per_node 1 -m
      climategan_torch.train` (one NCCL rank) as a subprocess
      at the default opts (full width) with data.loaders.batch_size=2 for 1
@@ -107,11 +107,11 @@ Phases, any failure exits non-zero:
      more step, the newest checkpoint at epoch 1, step 5; then
      apply_events main() with -r <run dir> on 2 photos (three uint8
      640x640x3 PNGs each) and Trainer.resume_from_path(run dir).infer_all,
-     each with the main path's launches {18, 1, 1, 1, 1}; then one step at
-     the default batch (6 per domain) and its peak memory (information:
+     each with the main path's launches {18, 1, 1, 1, 1} (information:
      steps/s, img/s and the loader's share over steps 2-4 and the whole
      epoch, the evaluation's and the save's seconds, the checkpoint's
-     bytes, the peak memory at batch 2 and 6, the launches over the phase);
+     bytes, the peak memory at batch 2, the launches over the phase; the
+     step at the default batch, 6 per domain, is phase 10.3's);
   9. the other generator configurations: the painter's cnc-3 packs of
      phase 2 byte-equal to the (10 taps, hid_pad, 8) layout; the SPADE mask
      decoder (gen.m.use_spade, the default gen.m.spade: cond_nc 15, latent
@@ -135,8 +135,8 @@ Phases, any failure exits non-zero:
      with z (drawn on the card), the final shortcut and batch-norm SPADEs:
      launches {18, 1, 1, 1, 1}, outputs checked, ms/batch, and the card's
      f32 path against the CPU at 256^2 (z fed to both) with the same bars;
-     `python -m climategan_torch.bench_train` on depth classification (its
-     bucket targets), its JSON line (value > 0).
+     climategan_torch.bench_train in this process on depth classification
+     (its bucket targets), its JSON line (value > 0).
   10. the step's options and FID: (1) at tiny_opts(32)'s sizes in f32
      (TF32 off), g_step then d_step of the card against the CPU from one
      state with the same draws, losses within 1e-4 relative and both
@@ -152,9 +152,11 @@ Phases, any failure exits non-zero:
      states per option): one counted train_step (masked_blend 2 a step,
      pl4m 3, grad_accumulation 4, remat 4: a rematerialized paste runs
      twice; spade_cond 0), finite losses, every parameter moved but the
-     ADVENT output biases, p50 of 3 more steps and the peak memory; (3)
-     plain and remat ('') in turns at the default batch (6 per domain):
-     ms and peak; (4) FID: the Inception's features of 4 images at 299^2
+     ADVENT output biases, one more step timed and the peak memory (phase
+     13.e times every option at once at full width); (3) plain and remat
+     ('') one after the other at the default batch (6 per domain): ms of
+     one step after the counted one, and peak; (4) FID: the Inception's
+     features of 4 images at 299^2
      on the card against the CPU (f32, TF32 off) within 1e-3 of the
      largest; the float64 Newton-Schulz square root of a 2048^2 covariance
      product on the card against the CPU's within 1e-9 of the largest;
@@ -162,14 +164,19 @@ Phases, any failure exits non-zero:
      in-memory images, each with its seconds and launches (spade_cond and
      masked_blend both launched), the FID finite.
   11. data parallel over torch.distributed (climategan_torch/parallel/),
-     each rank a process started with the spawn method: (a) NCCL at world
-     size 1: the full-width default g_step and d_step (640^2, 2 per
+     the ranks of (b) and (c) processes started with the spawn method (a
+     launch each, side by side), which run beside this process's own
+     steps of (a), (b) and (c) and (d)'s serving checks: (a)
+     NCCL at world size 1, this process the rank (phase 8's trainer and
+     (d)'s bench_train --mesh start NCCL ranks of their own): the
+     full-width default g_step and d_step (640^2, 2 per
      domain, bf16 policy), each from the seed-0 state, through the
      data-parallel path under PyTorch's deterministic algorithms, their
      states' sha256 equal to the plain steps' (where they differ, the plain
      steps run again to tell a non-reproducible step from the path), and
      masked_blend's launches per rank step counted (2), with the gradient
-     all-reduce's ms; (b) two gloo ranks on cuda:0 at tiny_opts(32)'s sizes,
+     all-reduce's ms once the gloo ranks are done; (b) two gloo ranks on
+     cuda:0 at tiny_opts(32)'s sizes,
      batch 2 per domain, without DADA and with 8^2 depth targets (no
      bicubic resize: step_check.TINY_DP_OVERRIDES), deterministic
      algorithms on both sides: g_step and d_step, each from the seed-0
@@ -223,8 +230,9 @@ Phases, any failure exits non-zero:
      at least hold_state's 1e-3); (b) in bf16, the train_step's
      p50 ms over SPATIAL_TRAIN_TIMED steps at k = 1, 2 and 4 with the
      peak memory, launch counts set to 0 before a step and read after
-     (masked_blend 2 k, the others 0), and at k = 2 the host and device ms
-     inside the exchanges and collectives (profiler ranges); (c) every
+     (masked_blend 2 k, the others 0), and at k = 2 the host ms inside
+     the exchanges and collectives (the host's clock at the edges of their
+     ranges, no profiler); (c) every
      masked_blend launch of one 4-shard bf16 step recorded and held
      against masked_blend_plain on the same shard at phase 2's bars; (d)
      in phase 11.b's launch, g_step and d_step with each gloo rank's rows
@@ -248,6 +256,43 @@ Phases, any failure exits non-zero:
      unsharded step's masked_blend, no spade_cond), and every masked_blend
      launch of one 2-shard remat step held against masked_blend_plain at
      phase 2's bars.
+  14. every other generator configuration on row shards (the seven of
+     phase 9: the SPADE masker, MobileNetV2, DeepLab v2, depth
+     classification, the painter with z, the final shortcut, batch-norm
+     SPADEs), the shards on ["cuda:0"] * k: (a) each at full width (640^2,
+     batch 2, seed-0 weights) in f32 through build_spatial_infer_fn over 2
+     shards against its unsharded forward on the same model
+     (``infer.unsharded``; the painter's z drawn once and fed to both):
+     every event within 1 LSB on >= 99.9% of values, the mask within
+     SPATIAL_MASK_BAR, launch counts set to 0 before the sharded forward
+     and read after: spade_cond 18 k (24 k with the SPADE masker) and k of
+     each other kernel; (b) the SPADE masker in bf16 over 4 shards: every
+     spade_cond window recorded (96, 24 of them at cnc 15) and held
+     against spade_cond_plain at phase 2's bars; (c) g_step and d_step of
+     groups A, B and C of tests/torch_port_common.py at tiny_opts(32)'s
+     sizes in float64 over 2 shards against the unsharded steps (DeepLab
+     v2's dropout from one seed on both sides): every loss within
+     TINY_OPTION_BAR relative and both models held by hold_state; (d) the
+     SPADE masker's and DeepLab v2's full-width bf16 train_step at k = 1
+     and 2: p50 ms of SPATIAL_CONFIG_TIMED steps and the peak memory
+     (information), launches masked_blend 2 k and nothing else; (e)
+     apply_events --spatial -r <a run dir of depth classification> on
+     phase 6's 7 photos (f32) within 1 LSB of the unsharded serve on >=
+     99.9% of values, launches per batch {18 k, k, k, k, k}, and
+     climategan_torch.bench --spatial --stage masker on the SPADE masker,
+     its JSON line.
+Work that does not wait for other work runs beside it, the script's
+limit being 1,200 s: phase 9 runs in this process while phase 8's first
+trainer run trains in its own (the trainer's seconds and phase 9's are
+then information only); the checks that hold the card to a reference by
+bars that what runs beside them cannot move, and time nothing (phase 9's
+card against the CPU, 13.e's pool check and 13.e(a), 14.c), run in a
+process of their own (``side_main``), started after 10.1 and run beside
+phases 10.2-11, its lines printed before phase 12's; phase 11's gloo
+ranks run beside this process's own steps. The f32 step holds of the
+card against the CPU (9.5's SPADE masker step, run after phase 8, and
+10.1) run with nothing beside them (ROADMAP C). Each log line's second
+on the script's clock goes to standard error.
 The last three lines are the card's name and power limit, the kernels JSON
 line (each kernel's launches per configuration's path; spade_cond's with
 the SPADE masker's numbers; ``ddp_train_launches``: per rank step of
@@ -255,8 +300,9 @@ phase 11; phase 10's launches per pl4m and accumulated
 step and per FID evaluation; ``spatial_launches``: per row-sharded forward
 of phase 12.a by shard count; ``spatial_train_launches``: per row-sharded
 train step of phase 13.b by shard count; ``spatial_option_train_launches``:
-per train step with every option of phase 13.e by remat and shard count),
-and {"ok": true, "device": {...}}.
+per train step with every option of phase 13.e by remat and shard count;
+``spatial_config_launches``: per 2-shard forward of phase 14.a by
+configuration), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -308,8 +354,20 @@ EVENT_DESIGN = {
 }
 
 
+T_START = time.perf_counter()
+# the side process's log lines, which its parent prints (side_main)
+_SINK = None
+
+
 def log(*args):
     print(*args, flush=True)
+    # the script's clock at each line, on standard error: where a run's
+    # seconds went
+    first = " ".join(map(str, args)).split("\n", 1)[0]
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {first[:100]}",
+          file=sys.stderr, flush=True)
+    if _SINK is not None:
+        _SINK.append(" ".join(map(str, args)))
 
 
 def smi() -> str:
@@ -583,29 +641,28 @@ def serving_phase(torch, opts, dev) -> None:
              "overlap, no PNG": ([], lambda name, event, img: None)}
     x0 = torch.from_numpy(cli.pad_batch(np.stack(xs[:BATCH]), BATCH)).to(dev)
     rates, fwd = {}, []
-    for _ in range(2):
-        for mode, (extra, write) in modes.items():
-            stores = cli.new_stores()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()):  # per-batch lines
-                cli.render(stream, cli.parse_args(flags + extra), write,
-                           infer=infer, stores=stores)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            prep_s = sum(stores["data pre-processing"])
-            rates.setdefault(mode, []).append(
-                (len(stream) / wall, len(stream) / (wall - prep_s)))
-            log(f"render, {mode}, {len(stream)} photos: {wall:.3f} s\n"
-                f"{stores_report(stores)}")
-        # the forward alone over as many batches, on one batch on the card
-        t0 = time.perf_counter()
-        for _ in range(len(stream) // BATCH):
-            infer(x0, generator=gen)
+    for mode, (extra, write) in modes.items():
+        stores = cli.new_stores()
         torch.cuda.synchronize()
-        fwd.append(len(stream) / (time.perf_counter() - t0))
-    log(f"served images/s at batch {BATCH}, {len(stream)} photos (two runs "
-        f"each, whole call / loop after the prep): " + "; ".join(
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # per-batch lines
+            cli.render(stream, cli.parse_args(flags + extra), write,
+                       infer=infer, stores=stores)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prep_s = sum(stores["data pre-processing"])
+        rates.setdefault(mode, []).append(
+            (len(stream) / wall, len(stream) / (wall - prep_s)))
+        log(f"render, {mode}, {len(stream)} photos: {wall:.3f} s\n"
+            f"{stores_report(stores)}")
+    # the forward alone over as many batches, on one batch on the card
+    t0 = time.perf_counter()
+    for _ in range(len(stream) // BATCH):
+        infer(x0, generator=gen)
+    torch.cuda.synchronize()
+    fwd.append(len(stream) / (time.perf_counter() - t0))
+    log(f"served images/s at batch {BATCH}, {len(stream)} photos (whole "
+        f"call / loop after the prep): " + "; ".join(
             f"{m} " + ", ".join(f"{a:.2f} / {b:.2f}" for a, b in v)
             for m, v in rates.items())
         + f"; the forward alone, {len(stream) // BATCH} batches enqueued back "
@@ -643,7 +700,7 @@ def serving_phase(torch, opts, dev) -> None:
     del G, infer
     tmp.cleanup()
 
-    for b in (2, 8, 32):
+    for b in (2, 8):
         result = bench.run_bench(bench.parse_args(["--events", "all",
                                                    "--batch", str(b)]))
         log(json.dumps(result))
@@ -854,10 +911,13 @@ def training_phase(torch, dev) -> dict:
     torch.cuda.empty_cache()
 
     # ---- 7.4 the bench -------------------------------------------------
-    out = subprocess.run(
-        [sys.executable, "-m", "climategan_torch.bench_train"],
-        cwd=ROOT, check=True, capture_output=True, text=True)
-    line = json.loads(out.stdout.strip().splitlines()[-1])
+    # its main() in this process: a process of its own took about 10 s more
+    # to start (phase 8's trainer and 11.d's ranks start processes)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if bench_train.main([]) != 0:
+            raise AssertionError("bench_train main() failed")
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
     if not line["value"] > 0 or not line["max_memory_allocated"]:
         raise AssertionError(f"bench_train: {line}")
     log(json.dumps(line))
@@ -868,14 +928,23 @@ def training_phase(torch, dev) -> dict:
 # phase 8: the synthetic dataset and the trainer's runs
 # 8 train samples per domain: the script's time limit also holds phase 11
 TRAIN_SAMPLES, VAL_SAMPLES = 8, 4
-PHOTO_HW = (720, 960)
+# the loader's numpy resizes (data/transforms.np_resize, an einsum with a
+# dense interpolation matrix) take seconds per map of a 720x960 photo,
+# which made about 31 s of the first step of each of the trainer's runs
+# and about 41 s of each evaluation on the H100's host: the train photos are
+# 3:4 at the model's height, so the aspect-preserving resize keeps their
+# size, and the crop and the resize after it run as on any photo; the val
+# photos are at the model's square size
+PHOTO_HW = (SIZE, SIZE * 4 // 3)
+VAL_HW = (SIZE, SIZE)
 TRAIN_BATCH, BIG_BATCH = 2, 6
 TRAINER_TIMEOUT = 900
 
 
 def write_training_dataset(root: Path) -> dict:
     """TRAIN_SAMPLES train and VAL_SAMPLES val samples per domain (r, s, rf)
-    as PNGs at PHOTO_HW, in the layout of tests/test_trainer_integration.py
+    as PNGs at PHOTO_HW (the val ones at VAL_HW), in the layout of
+    tests/test_trainer_integration.py
     (x and m everywhere; s adds Unity-coded depth and integer seg labels);
     returns the file lists {"train": {domain: json}, "val": {...}}."""
     from concurrent.futures import ThreadPoolExecutor
@@ -883,7 +952,6 @@ def write_training_dataset(root: Path) -> dict:
     import cv2
     import numpy as np
 
-    h, w = PHOTO_HW
     jobs, lists = [], {"train": {}, "val": {}}
     for mode, n in (("train", TRAIN_SAMPLES), ("val", VAL_SAMPLES)):
         for domain in ("r", "s", "rf"):
@@ -896,13 +964,14 @@ def write_training_dataset(root: Path) -> dict:
                     e["d"] = str(d / f"d_{i}.png")
                     e["s"] = str(d / f"s_{i}.png")
                 samples.append(e)
-                jobs.append((e, len(jobs)))
+                jobs.append((e, len(jobs),
+                             PHOTO_HW if mode == "train" else VAL_HW))
             lp = root / f"{mode}_{domain}.json"
             lp.write_text(json.dumps(samples))
             lists[mode][domain] = str(lp)
 
     def write(job):
-        e, seed = job
+        e, seed, (h, w) = job
         r = np.random.default_rng(seed)
         cv2.imwrite(e["x"], r.integers(0, 256, (h, w, 3), np.uint8))
         cv2.imwrite(e["m"], (r.random((h, w)) > 0.5).astype(np.uint8) * 255)
@@ -923,23 +992,25 @@ TORCHRUN = ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
             "1"]
 
 
-def train_cli(args, launcher=()) -> list:
+def train_cli(args, launcher=()) -> tuple:
     """`python [launcher] -m climategan_torch.train` in a subprocess on the
-    card; its train.jsonl records."""
+    card: its train.jsonl records and a line of its exit code, seconds and
+    output's tail (for the caller to log: it may run in a thread)."""
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, *launcher, "-m",
                           "climategan_torch.train", *args], cwd=ROOT,
                          capture_output=True, text=True,
                          timeout=TRAINER_TIMEOUT)
     tail = "\n".join(out.stdout.splitlines()[-12:])
-    log(f"python {' '.join(launcher)} -m climategan_torch.train (rc "
-        f"{out.returncode}, {time.perf_counter() - t0:.1f} s):\n{tail}")
+    line = (f"python {' '.join(launcher)} -m climategan_torch.train (rc "
+            f"{out.returncode}, {time.perf_counter() - t0:.1f} s):\n{tail}")
     if out.returncode != 0:
-        raise AssertionError(f"the trainer failed:\n{out.stderr[-4000:]}")
+        raise AssertionError(f"{line}\nthe trainer failed:\n"
+                             f"{out.stderr[-4000:]}")
     run_dir = Path(next(a.split("=", 1)[1] for a in args
                         if a.startswith("output_path=")))
-    return [json.loads(line) for line in
-            (run_dir / "train.jsonl").read_text().splitlines()]
+    return [json.loads(rec) for rec in
+            (run_dir / "train.jsonl").read_text().splitlines()], line
 
 
 def train_in_process(args) -> tuple:
@@ -974,11 +1045,13 @@ def epoch_record(records, epoch: int) -> dict:
     return rec
 
 
-def trainer_phase(torch, dev) -> dict:
+def trainer_phase(torch, dev, beside=None) -> tuple:
     """Phase 8: the trainer through its entry point (see the module
-    docstring). Returns the launches of each kernel in the first run's
+    docstring), ``beside()`` run in this process while the first run's
+    process trains. Returns the launches of each kernel in the first run's
     epoch, the temp dir of the dataset (for phase 10's FID on its val set;
-    the caller cleans it up) and the dataset's lists."""
+    the caller cleans it up), the dataset's lists and what ``beside``
+    returned."""
     import os
     import tempfile
 
@@ -986,12 +1059,10 @@ def trainer_phase(torch, dev) -> dict:
     import numpy as np
 
     from climategan_torch import apply_events as cli
-    from climategan_torch import bench_train, kernels
+    from climategan_torch import kernels
     from climategan_torch.parallel.mesh import fallback_message
-    from climategan_torch.train_step import StepBuilder
     from climategan_torch.trainer import Trainer
     from climategan_torch.utils.checkpoint import read_checkpoint, state_digest
-    from climategan_torch.utils.opts import load_opts
 
     t_phase = time.perf_counter()
     tmp = tempfile.TemporaryDirectory()
@@ -999,14 +1070,22 @@ def trainer_phase(torch, dev) -> dict:
     t0 = time.perf_counter()
     lists = write_training_dataset(root / "data")
     log(f"trainer phase: wrote {3 * (TRAIN_SAMPLES + VAL_SAMPLES)} samples "
-        f"at {PHOTO_HW[0]}x{PHOTO_HW[1]} in {time.perf_counter() - t0:.1f} s")
+        f"(train {PHOTO_HW[0]}x{PHOTO_HW[1]}, val {VAL_HW[0]}x{VAL_HW[1]}) "
+        f"in {time.perf_counter() - t0:.1f} s")
     run = root / "run"
     args = [f"data.files.train={json.dumps(lists['train'])}",
             f"data.files.val={json.dumps(lists['val'])}",
             f"data.loaders.batch_size={TRAIN_BATCH}", f"output_path={run}"]
 
     # ---- 8.1 one epoch at the default opts, full width -----------------
-    records = train_cli(args + ["train.epochs=1"], TORCHRUN)
+    # its process runs beside ``beside`` (phase 9), which this process runs
+    # meanwhile: the trainer's seconds are information only
+    first_run = _in_thread("the trainer's first run, beside phase 9",
+                           lambda: train_cli(args + ["train.epochs=1"],
+                                             TORCHRUN))
+    beside_result = beside() if beside is not None else None
+    records, line = first_run()
+    log(line)
     first = epoch_record(records, 0)
     steps = TRAIN_SAMPLES // TRAIN_BATCH
     if first["steps"] != steps:
@@ -1029,8 +1108,9 @@ def trainer_phase(torch, dev) -> dict:
     os.link(ckpts / "latest_ckpt.pth", saved)
     # NCCL at world size 1: the epoch record holds the ranks' digest, the
     # checkpoint's
+    saved_digest = state_digest(read_checkpoint(saved))
     if first.get("world_size") != 1 or \
-            first.get("state_digest") != state_digest(read_checkpoint(saved)):
+            first.get("state_digest") != saved_digest:
         raise AssertionError(f"the epoch under torch.distributed.run: {first}")
     walls = first["step_s"][1:]
     waits = first["loader_wait_s"][1:]
@@ -1075,7 +1155,7 @@ def trainer_phase(torch, dev) -> dict:
         raise AssertionError("tpu.spatial_shards=2 on one card: no fallback "
                              "message")
     resumed = [r for r in records if "resumed_from_epoch" in r]
-    want = state_digest(read_checkpoint(saved))
+    want = saved_digest
     if len(resumed) != 1 or resumed[0]["resumed_from_epoch"] != 0 or \
             resumed[0]["state_digest"] != want:
         raise AssertionError(f"resume: {resumed}, saved state {want}")
@@ -1130,31 +1210,15 @@ def trainer_phase(torch, dev) -> dict:
         f"infer_all: launches {inferred}")
     del trainer, out
 
-    # ---- 8.4 one step at the default batch -----------------------------
-    torch.cuda.empty_cache()
-    builder = StepBuilder(load_opts())
-    state = builder.init_state(seed=0, device=dev)
-    batch = bench_train.synthetic_batch(BIG_BATCH, SIZE, 160, dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    state, metrics = builder.train_step(state, batch)
-    torch.cuda.synchronize()
-    t_big = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    if not all(torch.isfinite(v).all() for v in metrics.values()):
-        raise AssertionError("non-finite losses at the default batch")
-    log(f"one step at the default batch ({BIG_BATCH} per domain, "
-        f"{3 * BIG_BATCH} images, first step): {t_big:.2f} s, peak memory "
-        f"{peak:,} B ({peak / 2**30:.2f} GiB)")
-    del state, batch, metrics
+    # (the step at the default batch, 6 per domain, and its peak memory:
+    # phase 10.3)
     torch.cuda.empty_cache()
     total = {k: first["launches"][k] + second["launches"][k] + served[k]
              + inferred[k] for k in launches}
     log(f"launches over the trainer phase (two epochs, serving, infer_all): "
         f"{total}")
     log(f"trainer phase: {time.perf_counter() - t_phase:.1f} s")
-    return launches, tmp, lists
+    return launches, tmp, lists, beside_result
 
 
 # phase 9: the other generator configurations
@@ -1215,6 +1279,25 @@ def card_vs_cpu(torch, opts, what, z_shape=None):
                     for k, (a, m) in agree.items()))
     if not err <= 1e-3 or not all(a >= 0.999 for a, _ in agree.values()):
         raise AssertionError(f"{what}: card and CPU disagree")
+
+
+def config_cpu_checks(torch, dev) -> None:
+    """Phase 9's card against the CPU at SMALL^2 (``card_vs_cpu``): the
+    SPADE masker and each configuration of CONFIG_RUNS, z fed to both
+    where the painter takes one."""
+    from climategan_torch.models.generator import GenConfig
+    from climategan_torch.utils.opts import load_opts
+
+    card_vs_cpu(torch, load_opts(commandline_opts=SPADE_MASKER),
+                "SPADE masker")
+    for name, overrides in CONFIG_RUNS.items():
+        copts = load_opts(commandline_opts=overrides)
+        cfg = GenConfig.from_opts(copts)
+        z_shape = None
+        if not cfg.p_no_z:
+            s = SMALL // 2 ** cfg.p_spade_n_up
+            z_shape = (1, cfg.p_latent_dim, s, s)
+        card_vs_cpu(torch, copts, name, z_shape)
 
 
 def check_outputs(torch, out, what):
@@ -1398,7 +1481,7 @@ def configs_phase(torch, dev, x, uniform, infer_default, painter_calls) -> dict:
                                            else "bytes"),
                  "forward_ms": spade_ms, "default_forward_ms": default_ms}
     del calls, mask_calls
-    card_vs_cpu(torch, opts, "SPADE masker")
+    # (the card against the CPU runs in the side process: config_cpu_checks)
     result = bench.run_bench(bench.parse_args(
         ["--events", "all", "--batch", str(BATCH), "--iters", "3",
          *SPADE_MASKER]))
@@ -1445,7 +1528,8 @@ def configs_phase(torch, dev, x, uniform, infer_default, painter_calls) -> dict:
     tmp.cleanup()
 
     # ---- 9.5 its training step -------------------------------------------
-    spade_step_tiny(torch, dev)
+    # (its tiny step, card against CPU: spade_step_tiny, run with nothing
+    # beside it before phase 10)
     with torch.inference_mode(False), torch.enable_grad():
         builder = StepBuilder(opts)
         state = builder.init_state(seed=0, device=dev)
@@ -1494,19 +1578,15 @@ def configs_phase(torch, dev, x, uniform, infer_default, painter_calls) -> dict:
                      reps=3)
         log(f"{name}: {SIZE}^2 bf16 batch {BATCH} all events {ms:.2f} ms "
             f"({1e3 * BATCH / ms:.3f} img/s), launches {paths[name]}")
-        z_shape = None
-        if not Gc.cfg.p_no_z:
-            s = SMALL // 2 ** Gc.cfg.p_spade_n_up
-            z_shape = (1, Gc.cfg.p_latent_dim, s, s)
         del Gc, inf, out
-        card_vs_cpu(torch, copts, name, z_shape)
 
     # ---- 9.7 bench_train on depth classification (bucket targets) --------
-    out = subprocess.run(
-        [sys.executable, "-m", "climategan_torch.bench_train", "--warmup", "1",
-         "--iters", "2", *CONFIG_RUNS["classification"]],
-        cwd=ROOT, check=True, capture_output=True, text=True)
-    line = json.loads(out.stdout.strip().splitlines()[-1])
+    # in this process, as phase 7 runs its main()
+    with torch.inference_mode(False), torch.enable_grad():
+        line = bench_train.run_bench(bench_train.parse_args(
+            ["--warmup", "1", "--iters", "2",
+             *CONFIG_RUNS["classification"]]))
+    torch.cuda.empty_cache()
     if not line["value"] > 0 or not line["max_memory_allocated"]:
         raise AssertionError(f"bench_train classification: {line}")
     log("bench_train " + " ".join(CONFIG_RUNS["classification"]) + ": "
@@ -1615,7 +1695,7 @@ def hold_tiny_step(torch, dev, overrides, n, what, seed: int = 0,
 
 
 def full_width_option(torch, dev, G, name, overrides, n, want_blends,
-                      steps: int = 3) -> dict:
+                      steps: int = 1) -> dict:
     """One counted train_step (launch counts set to 0 before it and read
     after: masked_blend ``want_blends``, spade_cond 0) of the default opts
     with ``overrides`` at SIZE^2 and ``n`` per domain, the bf16 policy, on
@@ -1674,13 +1754,13 @@ def full_width_option(torch, dev, G, name, overrides, n, want_blends,
     return out
 
 
-def step_options_phase(torch, dev, val_lists) -> dict:
-    """Phase 10: the step's options and FID (see the module docstring).
-    ``val_lists``: phase 8's dataset lists. Returns the launches of the
-    pl4m and accumulated steps and of the FID evaluations."""
-    from climategan_torch.models.generator import create_generator
-    from climategan_torch.utils.opts import load_opts
-
+def option_tiny_steps(torch, dev) -> None:
+    """Phase 10.1 (see the module docstring): each option's tiny step,
+    card vs CPU. These f32 holds, and the SPADE masker's tiny step in 9.5,
+    run with nothing else on the card: the card's f32 convolutions sum in
+    an order that depends on what else runs there, and at a kink that
+    moves gradients past hold_state's bars (a side process beside 9.5 put
+    encoder.bn1.bias 2.65e-05 off; H100 80GB HBM3)."""
     t_phase = time.perf_counter()
     # ---- 10.1 tiny steps, card vs CPU -----------------------------------
     # the tiny step's f32 gradients sit at kinks (leaky ReLUs; the feature
@@ -1699,6 +1779,20 @@ def step_options_phase(torch, dev, val_lists) -> dict:
     for policy, overrides in REMAT.items():
         hold_tiny_step(torch, dev, overrides, 2, f"remat {policy!r}")
     log(f"phase 10 tiny steps: {time.perf_counter() - t_phase:.1f} s")
+
+
+def step_options_phase(torch, dev, val_lists, after_tiny=None) -> dict:
+    """Phase 10: the step's options and FID (see the module docstring).
+    ``val_lists``: phase 8's dataset lists; ``after_tiny`` is called once
+    10.1's tiny steps are done. Returns the launches of the pl4m and
+    accumulated steps and of the FID evaluations."""
+    from climategan_torch.models.generator import create_generator
+    from climategan_torch.utils.opts import load_opts
+
+    t_phase = time.perf_counter()
+    option_tiny_steps(torch, dev)
+    if after_tiny is not None:
+        after_tiny()
     torch.cuda.empty_cache()
     G = create_generator(load_opts(), 0).to(dev)
     results = options_full_width(torch, dev, G)
@@ -1714,28 +1808,26 @@ def step_options_phase(torch, dev, val_lists) -> dict:
 
 def options_full_width(torch, dev, G) -> dict:
     """Phase 10.2-10.3: each option's full-width step on ``G``, then plain
-    and remat in turns at the default batch. Returns each option's
+    and remat at the default batch. Returns each option's
     ``full_width_option`` result."""
     results = {}
     for name, (overrides, n, blends) in FULL_OPTIONS.items():
         r = results[name] = full_width_option(torch, dev, G, name, overrides,
                                               n, blends)
         log(f"full-width step, {name} ({SIZE}^2, {n} per domain, bf16 "
-            f"policy): p50 {r['p50_ms']:.2f} ms (" + ", ".join(
-                f"{t:.2f}" for t in r["ms"]) + f"), peak {r['peak']:,} B "
+            f"policy): timed step " + ", ".join(
+                f"{t:.2f}" for t in r["ms"]) + f" ms, peak {r['peak']:,} B "
             f"({r['peak'] / 2**30:.2f} GiB), launches {r['launches']}, "
             f"g_total {r['g_total']:.4f} d_total {r['d_total']:.4f}")
     log(f"masked_blend launches per train_step: pl4m "
         f"{results['pl4m']['launches']['masked_blend']}, grad_accumulation 2 "
         f"{results['grad_accumulation']['launches']['masked_blend']} "
         "(the default step: 2, PERF.md section 6)")
-    for name, overrides in (("plain", []), ("remat ''", REMAT[""]),
-                            ("remat ''", REMAT[""]), ("plain", [])):
+    for name, overrides in (("plain", []), ("remat ''", REMAT[""])):
         r = full_width_option(torch, dev, G, f"{name} batch {BIG_BATCH}",
-                              overrides, BIG_BATCH, 4 if overrides else 2,
-                              steps=2)
-        log(f"batch {BIG_BATCH} per domain, {name}: p50 {r['p50_ms']:.2f} ms "
-            f"(" + ", ".join(f"{t:.2f}" for t in r["ms"]) + f"), peak "
+                              overrides, BIG_BATCH, 4 if overrides else 2)
+        log(f"batch {BIG_BATCH} per domain, {name}: timed step "
+            + ", ".join(f"{t:.2f}" for t in r["ms"]) + " ms, peak "
             f"{r['peak']:,} B ({r['peak'] / 2**30:.2f} GiB)")
     torch.cuda.empty_cache()
     return results
@@ -1848,7 +1940,8 @@ DP_DRAWS = ((0.05, False), (0.1, False))
 
 
 def dp_rank(device, payload) -> dict:
-    """One rank of phase 11 (``parallel.spawn.run_ranks``): each job, a
+    """One rank of phase 11 (``parallel.spawn.run_ranks``, or this process
+    in 11.a's group of one): each job, a
     step name, its draws and optionally a row shard count (phase 13.d:
     the rank's rows split again over that many shards of its device),
     from the seed-0 state (``replicate``d) on this rank's rows of the
@@ -1857,7 +1950,8 @@ def dp_rank(device, payload) -> dict:
     (summed over the ranks), the state's sha256 and, on rank 0 with
     ``models``, both models and their first moments on the CPU. A payload
     of ``groups`` runs each group's payload in turn in the same ranks (one
-    process start) and returns their results in order."""
+    process start) and returns their results in order; ``keep_state``
+    returns the last job's state too."""
     if "groups" in payload:
         return [dp_rank(device, p) for p in payload["groups"]]
     import torch
@@ -1903,6 +1997,8 @@ def dp_rank(device, payload) -> dict:
         out["jobs"].append(rec)
         if payload.get("time_reduce"):
             out["reduce_ms"] = _reduce_ms(torch, device, state)
+    if payload.get("keep_state"):  # in this process: the last job's state
+        out["state"] = state
     return out
 
 
@@ -1969,26 +2065,84 @@ def _dp_batch(payload, device):
                                        depth=payload.get("depth"))
 
 
-def _launch(torch, world, payload, devices, backend) -> list:
-    """``dp_rank`` on ``world`` ranks; every rank's state after each job
-    must be rank 0's. Returns each rank's result, or for a payload of
-    ``groups`` each group's results by rank."""
+def _in_thread(what: str, call):
+    """Start ``call()`` in a thread of this process; returns a function
+    that waits for it, logs its seconds and returns what it returned (what
+    it raised is raised there). The thread is not a daemon: if this
+    process fails meanwhile, it still waits for the call, which ends or
+    kills the processes it started."""
+    import threading
+
+    box, t0 = {}, time.perf_counter()
+
+    def target():
+        try:
+            box["got"] = call()
+        except BaseException as e:  # raised again by finish()
+            box["error"] = e
+        box["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=target)
+    thread.start()
+
+    def finish():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        log(f"  {what}: {box['s']:.1f} s with their start")
+        return box["got"]
+
+    return finish
+
+
+def _start_ranks(torch, world, payload, devices, backend):
+    """Start ``dp_rank`` on ``world`` ranks from a thread of this process:
+    their start, build and steps run beside what this process does next.
+    Returns a function that waits for the ranks and returns what
+    ``_launch`` returns (a failed launch raises there)."""
     from climategan_torch.parallel.spawn import run_ranks
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    got = run_ranks("chip_smoke:dp_rank", world, payload, devices=devices,
-                    backend=backend, timeout=DP_TIMEOUT)
-    log(f"  {world} {backend} rank(s) on {devices}: "
-        f"{time.perf_counter() - t0:.1f} s with their start")
-    groups = ([[r[g] for r in got] for g in range(len(payload["groups"]))]
-              if "groups" in payload else [got])
-    for ranks in groups:
-        digests = [[j["digest"] for j in r["jobs"]] for r in ranks]
-        if any(d != digests[0] for d in digests):
-            raise AssertionError(f"the ranks' states differ: {digests}")
-    return groups if "groups" in payload else got
+    ranks = _in_thread(f"{world} {backend} rank(s) on {devices}",
+                       lambda: run_ranks("chip_smoke:dp_rank", world, payload,
+                                         devices=devices, backend=backend,
+                                         timeout=DP_TIMEOUT))
+
+    def finish() -> list:
+        got = ranks()
+        groups = ([[r[g] for r in got] for g in range(len(payload["groups"]))]
+                  if "groups" in payload else [got])
+        for ranks_ in groups:
+            digests = [[j["digest"] for j in r["jobs"]] for r in ranks_]
+            if any(d != digests[0] for d in digests):
+                raise AssertionError(f"the ranks' states differ: {digests}")
+        return groups if "groups" in payload else got
+
+    return finish
+
+
+def _launch(torch, world, payload, devices, backend) -> list:
+    """``dp_rank`` on ``world`` ranks; every rank's state after each job
+    must be rank 0's. Returns each rank's result, or for a payload of
+    ``groups`` each group's results by rank."""
+    return _start_ranks(torch, world, payload, devices, backend)()
+
+
+@contextlib.contextmanager
+def _nccl_world_one(torch, device):
+    """A NCCL process group of this process alone (rank 0 of 1 on
+    ``device``), left at the end."""
+    from climategan_torch.parallel import distributed
+    from climategan_torch.parallel.spawn import free_port
+
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+        world_size=1, device_id=torch.device(device))
+    try:
+        yield
+    finally:
+        distributed.shutdown()
 
 
 def _plain_steps(torch, dev, payload, jobs) -> list:
@@ -2016,11 +2170,11 @@ def _plain_steps(torch, dev, payload, jobs) -> list:
     return out
 
 
-def tiny_payload(torch, dev) -> tuple:
+def tiny_payload() -> tuple:
     """Phase 11.b's payload, with phase 13.d's jobs: two gloo ranks on
     cuda:0 at tiny sizes, each step plain and hybrid (each rank's rows over
-    two row shards); with the card's one-process steps on the global batch
-    that hold them."""
+    two row shards); and the plain jobs, whose one-process steps on the
+    global batch (``tiny_reference``) hold them."""
     from climategan_torch.utils.step_check import TINY_DP_DEPTH, TINY_SIZE
 
     plain_jobs = [("g_step", DP_DRAWS[0]), ("d_step", DP_DRAWS[1])]
@@ -2028,12 +2182,16 @@ def tiny_payload(torch, dev) -> tuple:
             "feat": 32, "depth": TINY_DP_DEPTH, "batch_seed": 0,
             "models": True, "deterministic": True,
             "jobs": plain_jobs + [job + (2,) for job in plain_jobs]}
+    return tiny, plain_jobs
+
+
+def tiny_reference(torch, dev, tiny, plain_jobs) -> list:
+    """The card's one-process steps of ``tiny_payload``'s plain jobs."""
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        ref = _plain_steps(torch, dev, tiny, plain_jobs)
+        return _plain_steps(torch, dev, tiny, plain_jobs)
     finally:
         torch.use_deterministic_algorithms(False)
-    return tiny, ref
 
 
 def check_tiny_ranks(tiny, ranks, ref) -> None:
@@ -2077,10 +2235,11 @@ def check_tiny_ranks(tiny, ranks, ref) -> None:
             f"equal")
 
 
-def parallel_phase(torch, dev, run_dir: Path) -> dict:
-    """Phase 11 (see the module docstring). ``run_dir``: phase 8's, written
-    by one NCCL rank of ``torch.distributed.run``. Returns each kernel's
-    launches per rank step of (a)."""
+def _serve_checks(torch, run_dir: Path) -> None:
+    """Phase 11.d's serving checks: phase 8's run dir (its first epoch
+    trained by one NCCL rank of ``torch.distributed.run``) served by
+    apply_events -r with and without --mesh, bit-equal; render split over
+    two replicas on cuda:0 within 1 LSB of the unsplit render."""
     import tempfile
 
     import cv2
@@ -2088,95 +2247,7 @@ def parallel_phase(torch, dev, run_dir: Path) -> dict:
 
     from climategan_torch import apply_events as cli
     from climategan_torch import kernels
-    from climategan_torch.parallel.mesh import mesh_size
 
-    t_phase = time.perf_counter()
-    # g_step and d_step, each from the seed-0 state: the d_step's losses
-    # then come from the same G on both sides, not from a G update whose
-    # noise values (ExtraAdam's +-lr) the split moves
-    jobs = [("g_step", DP_DRAWS[0]), ("d_step", DP_DRAWS[1])]
-    full = {"config": _dp_config(False), "n": BATCH, "size": SIZE,
-            "feat": 160, "batch_seed": 0, "jobs": jobs, "models": False,
-            "deterministic": True, "time_reduce": True}
-
-    # ---- 11.a NCCL at world size 1, full width ---------------------------
-    # bit equality needs a reproducible step: PyTorch's deterministic
-    # algorithms (cuDNN's deterministic convolutions, no atomics in the
-    # backward); any op without one is printed
-    with warnings.catch_warnings(record=True) as alerts:
-        warnings.simplefilter("always")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            plain = _plain_steps(torch, dev, full, full["jobs"])
-        finally:
-            torch.use_deterministic_algorithms(False)
-    for msg in sorted({str(a.message)[:200] for a in alerts
-                       if "deterministic" in str(a.message)}):
-        log(f"  no deterministic version: {msg}")
-    want = [p["digest"] for p in plain]
-    want_metrics = [p["metrics"] for p in plain]
-    del plain
-    got = _launch(torch, 1, full, ["cuda:0"], "nccl")[0]
-    digests = [j["digest"] for j in got["jobs"]]
-    if got["backend"] != "nccl" or digests != want:
-        # is the plain step itself reproducible here?
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            again = [p["digest"] for p in
-                     _plain_steps(torch, dev, full, full["jobs"])]
-        finally:
-            torch.use_deterministic_algorithms(False)
-        raise AssertionError(f"NCCL at world size 1 ({got['backend']}): "
-                             f"states {digests} against the plain steps' "
-                             f"{want} (the plain steps again: {again})")
-    ddp = {k: sum(j["launches"][k] for j in got["jobs"])
-           for k in got["jobs"][0]["launches"]}
-    if ddp["masked_blend"] != 2 or ddp["spade_cond"] != 0:
-        raise AssertionError(f"a rank's step launched {ddp}")
-    log(f"11.a all_reduce_grads over NCCL at world size 1: "
-        f"{got['reduce_ms']['ms']:.2f} ms for {got['reduce_ms']['bytes']:,} "
-        f"B of G and D gradients")
-    log(f"11.a NCCL at world size 1, full width ({SIZE}^2, {BATCH} per "
-        f"domain, deterministic algorithms): the states after g_step and "
-        f"d_step, each from the seed-0 state, bit-equal to the plain steps' "
-        f"(sha256 {want[0][:16]}..., {want[1][:16]}...); launches per rank "
-        f"step (g_step + d_step) {ddp}")
-
-    # ---- 11.b and 11.c: one launch of two gloo ranks on cuda:0 ------------
-    # 11.b tiny (with phase 13.d's hybrid steps: each rank's rows over two
-    # row shards of cuda:0), then 11.c at full width in f32: in bf16 a mean
-    # of near-cancelling D outputs (s_advent_D_r, about 0.015 from outputs
-    # of about 1) moves by 4.5% of itself between a forward of one row and
-    # of two (H100 80GB HBM3, 700 W)
-    tiny, ref = tiny_payload(torch, dev)
-    full32 = dict(full, config={"train": {"bf16": False}},
-                  deterministic=False)
-    want_metrics = [p["metrics"] for p in
-                    _plain_steps(torch, dev, full32, full32["jobs"])]
-    tiny_got, ranks = _launch(torch, 2, {"groups": [tiny, full32]},
-                              ["cuda:0", "cuda:0"], "gloo")
-    check_tiny_ranks(tiny, tiny_got, ref)
-    del ref, tiny_got
-    got_metrics = [j["metrics"] for j in ranks[0]["jobs"]]
-    worst = max(abs(got[k] - v) / max(abs(v), 1e-12)
-                for got, want_job in zip(got_metrics, want_metrics)
-                for k, v in want_job.items())
-    if [set(m) for m in got_metrics] != [set(m) for m in want_metrics] \
-            or worst > 1e-2:
-        raise AssertionError(f"11.c losses: 2 ranks {got_metrics}, one "
-                             f"process {want_metrics}")
-    got_metrics = {k: v for m in got_metrics for k, v in m.items()}
-    log(f"11.c two gloo ranks on cuda:0, full width (one image per rank per "
-        f"domain, f32): {len(got_metrics)} losses within {worst:.2e} "
-        f"relative of the one-process steps' (bar 1e-2); digests equal; g_step "
-        f"{ranks[0]['jobs'][0]['step_s']:.2f} s, d_step "
-        f"{ranks[0]['jobs'][1]['step_s']:.2f} s (first calls); "
-        f"all_reduce_grads "
-        f"over gloo: {ranks[0]['reduce_ms']['ms']:.1f} ms for "
-        f"{ranks[0]['reduce_ms']['bytes']:,} B")
-
-    # ---- 11.d the entry points --------------------------------------------
-    # (phase 8's first epoch ran under torch.distributed.run over NCCL)
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         rng = np.random.default_rng(11)
@@ -2229,6 +2300,118 @@ def parallel_phase(torch, dev, run_dir: Path) -> dict:
             f"within {worst_lsb} LSB of the unsplit render on 100% of values "
             f"({100 * share:.4f}% equal)")
 
+
+
+def parallel_phase(torch, dev, run_dir: Path) -> dict:
+    """Phase 11 (see the module docstring). ``run_dir``: phase 8's, written
+    by one NCCL rank of ``torch.distributed.run``. Returns each kernel's
+    launches per rank step of (a)."""
+    from climategan_torch.parallel.mesh import mesh_size
+
+    t_phase = time.perf_counter()
+    # g_step and d_step, each from the seed-0 state: the d_step's losses
+    # then come from the same G on both sides, not from a G update whose
+    # noise values (ExtraAdam's +-lr) the split moves
+    jobs = [("g_step", DP_DRAWS[0]), ("d_step", DP_DRAWS[1])]
+    full = {"config": _dp_config(False), "n": BATCH, "size": SIZE,
+            "feat": 160, "batch_seed": 0, "jobs": jobs, "models": False,
+            "deterministic": True, "time_reduce": True}
+
+    # ---- 11.b and 11.c: two launches of two gloo ranks on cuda:0 ----------
+    # 11.b tiny (with phase 13.d's hybrid steps: each rank's rows over two
+    # row shards of cuda:0) and 11.c at full width in f32: in bf16 a mean
+    # of near-cancelling D outputs (s_advent_D_r, about 0.015 from outputs
+    # of about 1) moves by 4.5% of itself between a forward of one row and
+    # of two (H100 80GB HBM3, 700 W). Both launches start first and run
+    # beside each other and beside this process's own work below, 11.d's
+    # serving checks and 11.a (one launch of both took 66-80 s alone); what
+    # the ranks time is information only
+    tiny, plain_jobs = tiny_payload()
+    full32 = dict(full, config={"train": {"bf16": False}},
+                  deterministic=False)
+    gloo_tiny = _start_ranks(torch, 2, tiny, ["cuda:0", "cuda:0"], "gloo")
+    gloo_full = _start_ranks(torch, 2, full32, ["cuda:0", "cuda:0"], "gloo")
+    ref = tiny_reference(torch, dev, tiny, plain_jobs)
+    want_metrics = [p["metrics"] for p in
+                    _plain_steps(torch, dev, full32, full32["jobs"])]
+    _serve_checks(torch, run_dir)
+
+    # ---- 11.a NCCL at world size 1, full width ---------------------------
+    # bit equality needs a reproducible step: PyTorch's deterministic
+    # algorithms (cuDNN's deterministic convolutions, no atomics in the
+    # backward); any op without one is printed. The rank is this process
+    # (phase 8's trainer and 11.d's bench_train --mesh start NCCL ranks of
+    # their own); its all-reduce is timed once the gloo ranks are done
+    with warnings.catch_warnings(record=True) as alerts:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            plain = _plain_steps(torch, dev, full, full["jobs"])
+        finally:
+            torch.use_deterministic_algorithms(False)
+    for msg in sorted({str(a.message)[:200] for a in alerts
+                       if "deterministic" in str(a.message)}):
+        log(f"  no deterministic version: {msg}")
+    want = [p["digest"] for p in plain]
+    del plain
+    with _nccl_world_one(torch, "cuda:0"):
+        t0 = time.perf_counter()
+        try:
+            got = dp_rank("cuda:0", dict(full, time_reduce=False,
+                                         keep_state=True))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        log(f"  1 nccl rank in this process on cuda:0: "
+            f"{time.perf_counter() - t0:.1f} s")
+        digests = [j["digest"] for j in got["jobs"]]
+        if got["backend"] != "nccl" or digests != want:
+            # is the plain step itself reproducible here?
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                again = [p["digest"] for p in
+                         _plain_steps(torch, dev, full, full["jobs"])]
+            finally:
+                torch.use_deterministic_algorithms(False)
+            raise AssertionError(f"NCCL at world size 1 ({got['backend']}): "
+                                 f"states {digests} against the plain steps' "
+                                 f"{want} (the plain steps again: {again})")
+        tiny_got, ranks = gloo_tiny(), gloo_full()
+        reduce_ms = _reduce_ms(torch, "cuda:0", got.pop("state"))
+        torch.cuda.empty_cache()
+    ddp = {k: sum(j["launches"][k] for j in got["jobs"])
+           for k in got["jobs"][0]["launches"]}
+    if ddp["masked_blend"] != 2 or ddp["spade_cond"] != 0:
+        raise AssertionError(f"a rank's step launched {ddp}")
+    log(f"11.a all_reduce_grads over NCCL at world size 1: "
+        f"{reduce_ms['ms']:.2f} ms for {reduce_ms['bytes']:,} "
+        f"B of G and D gradients")
+    log(f"11.a NCCL at world size 1, full width ({SIZE}^2, {BATCH} per "
+        f"domain, deterministic algorithms): the states after g_step and "
+        f"d_step, each from the seed-0 state, bit-equal to the plain steps' "
+        f"(sha256 {want[0][:16]}..., {want[1][:16]}...); launches per rank "
+        f"step (g_step + d_step) {ddp}")
+
+    check_tiny_ranks(tiny, tiny_got, ref)
+    del ref, tiny_got
+    got_metrics = [j["metrics"] for j in ranks[0]["jobs"]]
+    worst = max(abs(got[k] - v) / max(abs(v), 1e-12)
+                for got, want_job in zip(got_metrics, want_metrics)
+                for k, v in want_job.items())
+    if [set(m) for m in got_metrics] != [set(m) for m in want_metrics] \
+            or worst > 1e-2:
+        raise AssertionError(f"11.c losses: 2 ranks {got_metrics}, one "
+                             f"process {want_metrics}")
+    got_metrics = {k: v for m in got_metrics for k, v in m.items()}
+    log(f"11.c two gloo ranks on cuda:0, full width (one image per rank per "
+        f"domain, f32): {len(got_metrics)} losses within {worst:.2e} "
+        f"relative of the one-process steps' (bar 1e-2); digests equal; g_step "
+        f"{ranks[0]['jobs'][0]['step_s']:.2f} s, d_step "
+        f"{ranks[0]['jobs'][1]['step_s']:.2f} s (first calls, beside this "
+        f"process's steps); all_reduce_grads "
+        f"over gloo: {ranks[0]['reduce_ms']['ms']:.1f} ms for "
+        f"{ranks[0]['reduce_ms']['bytes']:,} B")
+
+    # ---- 11.d the benches' --mesh, after the ranks --------------------------
     from climategan_torch import bench, bench_train
 
     for mod, argv in ((bench, ["--mesh", "--batch", "8", "--events", "all",
@@ -2304,6 +2487,76 @@ def _spatial_ranges(torch, fn):
     return host, dev_ms, wall, busy
 
 
+def _spatial_host_ms(torch, fn):
+    """One call of ``fn`` with the host's clock read at the edges of the
+    outermost "spatial.exchange" and "spatial.collective" ranges
+    (``spatial.trace_range``, replaced for the call): (the host ms inside
+    them, the call's wall ms). A train step's ranges without a profiler:
+    reading back a profile of a 2-shard step's host activity alone took
+    about 25 s (H100 80GB HBM3 host)."""
+    import threading
+
+    from climategan_torch.parallel import spatial
+
+    lock, clock = threading.Lock(), {"depth": 0, "t0": 0.0, "ms": 0.0}
+
+    @contextlib.contextmanager
+    def clocked(name):
+        with lock:
+            clock["depth"] += 1
+            if clock["depth"] == 1:
+                clock["t0"] = time.perf_counter()
+        try:
+            yield
+        finally:
+            with lock:
+                clock["depth"] -= 1
+                if clock["depth"] == 0:
+                    clock["ms"] += (time.perf_counter() - clock["t0"]) * 1e3
+
+    torch.cuda.synchronize()
+    original, spatial.trace_range = spatial.trace_range, clocked
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        spatial.trace_range = original
+    return clock["ms"], wall
+
+
+def _hold_windows(torch, windows, what):
+    """Each recorded (seg, pack) spade_cond call against spade_cond_plain
+    at phase 2's bars: the f32 kernel within 1e-4, the bf16 kernel within
+    one bf16 ulp of each output's largest magnitude. Returns the largest
+    errors."""
+    from climategan_torch.kernels.spade_cond import (
+        spade_cond,
+        spade_cond_packed,
+        spade_cond_plain,
+    )
+
+    e32 = e16 = 0.0
+    for i, (seg, pack) in enumerate(windows):
+        a32 = (seg.float(), pack.args[0].float(), pack.args[1].float(),
+               [tuple(t.float() for t in b) for b in pack.args[2]])
+        ref = spade_cond_plain(*a32)
+        for got, want in zip(spade_cond(*a32), ref):
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+            e32 = max(e32, (got - want).abs().max().item())
+        for got, want in zip(spade_cond_packed(seg, pack), ref):
+            ulp = 2.0 ** (torch.floor(torch.log2(want.abs().max())).item()
+                          - 7)
+            e = (got.float() - want).abs().max().item()
+            if not e <= ulp:
+                raise AssertionError(f"{what} spade_cond window {i} "
+                                     f"{tuple(seg.shape)}: bf16 error {e} "
+                                     f"> one ulp {ulp}")
+            e16 = max(e16, e)
+    return e32, e16
+
+
 def spatial_phase(torch, dev) -> dict:
     """Phase 12 (see the module docstring): row-sharded inference on
     ["cuda:0"] * k at full width. The card's machine shows one card, so
@@ -2317,11 +2570,6 @@ def spatial_phase(torch, dev) -> dict:
     from climategan_torch.inference import (
         build_infer_fn,
         build_spatial_infer_fn,
-    )
-    from climategan_torch.kernels.spade_cond import (
-        spade_cond,
-        spade_cond_packed,
-        spade_cond_plain,
     )
     from climategan_torch.models import norms as norms_mod
     from climategan_torch.models.blocks import SPADEResnetBlock
@@ -2419,24 +2667,8 @@ def spatial_phase(torch, dev) -> dict:
         f"batch against {times16[1]:.2f} unsharded")
     if len(windows) != n_windows:
         raise AssertionError(f"recorded {len(windows)} spade_cond windows")
-    e32 = e16 = 0.0
     heights = sorted({seg.shape[1] for seg, _ in windows})
-    for i, (seg, pack) in enumerate(windows):
-        a32 = (seg.float(), pack.args[0].float(), pack.args[1].float(),
-               [tuple(t.float() for t in b) for b in pack.args[2]])
-        ref = spade_cond_plain(*a32)
-        for got_, want_ in zip(spade_cond(*a32), ref):
-            torch.testing.assert_close(got_, want_, rtol=1e-4, atol=1e-4)
-            e32 = max(e32, (got_ - want_).abs().max().item())
-        for got_, want_ in zip(spade_cond_packed(seg, pack), ref):
-            ulp = 2.0 ** (torch.floor(torch.log2(want_.abs().max())).item()
-                          - 7)
-            e = (got_.float() - want_).abs().max().item()
-            if not e <= ulp:
-                raise AssertionError(f"spade_cond window {i} "
-                                     f"{tuple(seg.shape)}: bf16 error {e} "
-                                     f"> one ulp {ulp}")
-            e16 = max(e16, e)
+    e32, e16 = _hold_windows(torch, windows, "12.b")
     log(f"12.b the k = 4 forward's {len(windows)} spade_cond windows "
         f"(heights {heights}) against spade_cond_plain: f32 max error "
         f"{e32:.3e}, bf16 {e16:.3e} (within one ulp)")
@@ -2509,7 +2741,7 @@ SPATIAL_TRAIN_BAR = 1e-4  # the f32 sharded step's losses, relative
 # leaves above hold_state's noise floor of a leaf's distance over its
 # largest; the unsharded step's taken as at least hold_state's 1e-3)
 SPATIAL_TRAIN_NOISE = 2.0
-SPATIAL_TRAIN_TIMED = 3  # timed bf16 train steps per shard count
+SPATIAL_TRAIN_TIMED = 1  # timed bf16 train steps per shard count
 
 
 def _sharded_job(torch, builder, first, batch, i, devices):
@@ -2703,14 +2935,13 @@ def spatial_train_phase(torch, dev) -> dict:
                 f"{first_ms:.2f}), peak "
                 f"{peak:.2f} GiB, launches per step {launched[k]}")
         if k == SPATIAL_TRAIN_SHARDS[0]:
-            # one profiled step: reading a trace of the k = 4 step's ~10^5
-            # events back took about a minute
-            host, in_dev, wall, busy = _spatial_ranges(torch, step(devices))
-            line += (f"; under the profiler {wall:.2f} ms, exchanges and "
+            # one more step with the host's clock at the ranges' edges (no
+            # profiler; phase 12.a traces the exchanges on the card)
+            host, wall = _spatial_host_ms(torch, step(devices))
+            line += (f"; one more step {wall:.2f} ms, exchanges and "
                      f"collectives {host:.2f} ms of host time "
-                     f"({100 * host / wall:.1f}%) and {in_dev:.3f} ms of "
-                     f"device time ({100 * in_dev / busy:.1f}% of "
-                     f"{busy:.2f} busy ms)")
+                     f"({100 * host / wall:.1f}%, the host's clock at the "
+                     f"ranges' edges)")
         log(line)
     log(f"13.b: {time.perf_counter() - t_b:.1f} s with the state's build")
 
@@ -2780,21 +3011,14 @@ def _random_vgg(torch, dev, dtype=None):
     return vgg.to(device=dev, dtype=dtype)
 
 
-def spatial_options_phase(torch, dev) -> dict:
-    """Phase 13.e (see the module docstring): every step option at once on
-    row shards of the one card. Returns masked_blend's launches per bf16
-    train_step by remat and shard count and its largest errors against the
-    plain version over a 2-shard step's launches."""
-    import statistics
-
+def option_rows_tiny(torch, dev) -> None:
+    """Phase 13.e's pool check and 13.e(a) (see the module docstring): the
+    painter D's pool on a channels-last input; every option at once at
+    tiny_opts(32)'s sizes in float64 over 2 and 4 shards against the
+    unsharded steps."""
     import torch.nn.functional as F
 
-    from climategan_torch import bench_train, kernels
-    from climategan_torch.kernels import masked_blend as masked_blend_mod
-    from climategan_torch.kernels.masked_blend import (
-        masked_blend,
-        masked_blend_plain,
-    )
+    from climategan_torch import bench_train
     from climategan_torch.models.discriminator import avg_pool_3x3_s2
     from climategan_torch.train_step import StepBuilder
     from climategan_torch.utils.step_check import (
@@ -2874,6 +3098,26 @@ def spatial_options_phase(torch, dev) -> dict:
             del ref
     del builder, first, tiny
     log(f"13.e(a): {time.perf_counter() - t_phase:.1f} s")
+
+
+def spatial_options_phase(torch, dev) -> dict:
+    """Phase 13.e (see the module docstring): every step option at once on
+    row shards of the one card. Returns masked_blend's launches per bf16
+    train_step by remat and shard count and its largest errors against the
+    plain version over a 2-shard step's launches."""
+    import statistics
+
+    from climategan_torch import bench_train, kernels
+    from climategan_torch.kernels import masked_blend as masked_blend_mod
+    from climategan_torch.kernels.masked_blend import (
+        masked_blend,
+        masked_blend_plain,
+    )
+    from climategan_torch.train_step import StepBuilder
+
+    t_phase = time.perf_counter()
+    # (13.e's pool check and 13.e(a) run in the side process:
+    # option_rows_tiny)
 
     # ---- 13.e (b) full width: f32 losses, bf16 time and peak --------------
     t_b = time.perf_counter()
@@ -2991,6 +3235,363 @@ def spatial_options_phase(torch, dev) -> dict:
             "masked_blend_err": (e32, e16)}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: every other generator configuration on row shards
+SPATIAL_CONFIGS = {"spade_masker": SPADE_MASKER, **CONFIG_RUNS}
+SPATIAL_CONFIG_SHARDS = 2
+SPATIAL_CONFIG_TIMED = 1  # timed bf16 train steps per shard count
+# groups A, B and C of tests/torch_port_common.py (tests/test_torch_port_
+# configs*.py) as overrides of tiny_opts(32)'s sizes
+TINY_GROUPS = {
+    "A": ["gen.m.use_spade=true", "gen.m.spade.cond_nc=15",
+          "gen.m.spade.latent_dim=32", "gen.d.architecture=base",
+          "gen.p.use_final_shortcut=true"],
+    "B": ["gen.m.use_spade=true", "gen.m.spade.cond_nc=12",
+          "gen.m.spade.latent_dim=32", "gen.deeplabv3.backbone=mobilenet",
+          "gen.p.no_z=false"],
+    "C": ["gen.encoder.architecture=deeplabv2", "gen.s.architecture=deeplabv2",
+          "gen.s.use_dada=false", "gen.d.architecture=base",
+          "gen.d.classify.enable=true", "gen.d.classify.linspace.min=0.35",
+          "gen.d.classify.linspace.max=6.95",
+          "gen.d.classify.linspace.buckets=8", "gen.m.use_dada=false",
+          "gen.p.spade_param_free_norm=batch"],
+}
+
+
+def config_rows_tiny(torch, dev) -> None:
+    """Phase 14.c (see the module docstring): groups A, B and C's tiny
+    float64 g_step and d_step over 2 shards against the unsharded steps."""
+    from climategan_torch import bench_train
+    from climategan_torch.train_step import StepBuilder
+    from climategan_torch.utils.opts import load_opts
+    from climategan_torch.utils.step_check import (
+        TINY_OVERRIDES,
+        TINY_SIZE,
+        hold_state,
+    )
+
+    k = SPATIAL_CONFIG_SHARDS
+    t0 = time.perf_counter()
+    for group, overrides in TINY_GROUPS.items():
+        builder = StepBuilder(load_opts(path=TINY_OVERRIDES,
+                                        commandline_opts=overrides))
+        first = builder.init_state(0, dev)
+        first.G, first.D = first.G.double(), first.D.double()
+        buckets = 8 if builder.cfg.d_classify else 0
+        batch = {d: {key: v.double() if v.is_floating_point() else v
+                     for key, v in b.items()}
+                 for d, b in bench_train.synthetic_batch(
+                     2, TINY_SIZE, 32, dev, buckets=buckets).items()}
+        for i, (net, lr) in enumerate((("G", builder.g_lr),
+                                       ("D", builder.d_lr))):
+            jobs = []
+            for devices in (None, [SPATIAL_DEVICE] * k):
+                torch.manual_seed(11)  # DeepLab v2's dropout draws
+                jobs.append(_sharded_job(torch, builder, first, batch, i,
+                                         devices))
+            (ref, m_ref, mu_ref), (st, m, mu) = jobs
+            name = f"14.c {group}, {k} shards, {('g_step', 'd_step')[i]}"
+            if set(m) != set(m_ref):
+                raise AssertionError(f"{name}: losses {sorted(m)}")
+            worst = 0.0
+            for key, v in m_ref.items():
+                worst = max(worst, abs(m[key] - v) / max(abs(v), 1e-12))
+                if abs(m[key] - v) > TINY_OPTION_BAR * abs(v) + 1e-12:
+                    raise AssertionError(f"{name} {key}: {m[key]} "
+                                         f"against unsharded {v}")
+            other = "D" if net == "G" else "G"
+            summary = hold_state(getattr(st, net),
+                                 getattr(ref, net).state_dict(), lr, mu,
+                                 mu_ref, what=f"{name} {net}")
+            hold_state(getattr(st, other),
+                       getattr(ref, other).state_dict(),
+                       what=f"{name}, the other model {other}")
+            log(f"{name} (tiny float64): {len(m)} losses within "
+                f"{worst:.2e} relative of the unsharded step's; "
+                f"{summary}")
+            del jobs, ref, st
+        del builder, first, batch
+    log(f"14.c: {time.perf_counter() - t0:.1f} s")
+
+
+def _config_launches(name: str, k: int) -> dict:
+    """Each kernel's launches in a k-shard forward of configuration
+    ``name`` with all three events."""
+    spade = 18 + (MASK_DECODER_CALLS if name == "spade_masker" else 0)
+    return {n: (spade * k if n == "spade_cond" else k)
+            for n in MAIN_PATH_LAUNCHES}
+
+
+def spatial_configs_phase(torch, dev) -> dict:
+    """Phase 14 (see the module docstring): the seven other generator
+    configurations on row shards of the one card. Returns each kernel's
+    launches per 2-shard forward by configuration."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import yaml
+
+    from climategan_torch import apply_events as cli
+    from climategan_torch import bench, bench_train, kernels
+    from climategan_torch.inference import build_spatial_infer_fn
+    from climategan_torch.models import norms as norms_mod
+    from climategan_torch.models.generator import create_generator
+    from climategan_torch.train_step import StepBuilder
+    from climategan_torch.utils.opts import load_opts
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.rand(BATCH, SIZE, SIZE, 3, device=dev, generator=g) * 2 - 1
+    uniform = torch.rand(9, 9, device=dev, generator=g)
+    g_dev = torch.tensor(G_VALUE, device=dev)
+    k = SPATIAL_CONFIG_SHARDS
+
+    # ---- 14.a f32, each configuration over 2 shards against unsharded ----
+    launched = {}
+    for name, overrides in SPATIAL_CONFIGS.items():
+        opts = load_opts(commandline_opts=overrides)
+        G, infer = build_spatial_infer_fn(opts, [SPATIAL_DEVICE] * k,
+                                          dtype=torch.float32, seed=0)
+        z = G.sample_painter_z(BATCH, SIZE, SIZE, torch.float32, dev,
+                               torch.Generator(device=dev).manual_seed(4))
+
+        def call(fn):
+            return fn(x, uniform=uniform, g_value=g_dev, z=z)
+
+        times, outs = {}, {}
+        for what, fn in (("unsharded", infer.unsharded), ("sharded", infer)):
+            call(fn)  # a first call, then the counted and timed one
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            outs[what] = call(fn)
+            torch.cuda.synchronize()
+            times[what] = (time.perf_counter() - t0) * 1e3
+        launched[name] = dict(kernels.launches)
+        want, got = outs["unsharded"], outs["sharded"]
+        if launched[name] != _config_launches(name, k):
+            raise AssertionError(f"14.a {name}: launches {launched[name]}, "
+                                 f"expected {_config_launches(name, k)}")
+        agree = {}
+        for key in ("flood", "wildfire", "smog"):
+            agree[key] = lsb_agreement(got[key], want[key])
+            if not agree[key][0] >= 0.999:
+                raise AssertionError(f"14.a {name}: {key} disagrees "
+                                     f"{agree[key]}")
+        mask_err = (got["mask"] - want["mask"]).abs().max().item()
+        if not mask_err <= SPATIAL_MASK_BAR:
+            raise AssertionError(f"14.a {name}: mask error {mask_err}")
+        log(f"14.a {name}, {k} shards f32 (640^2 batch {BATCH}): "
+            + ", ".join(f"{key} within 1 LSB on {100 * a:.4f}% (max {m} LSB)"
+                        for key, (a, m) in agree.items())
+            + f"; mask max error {mask_err:.3e} (bar {SPATIAL_MASK_BAR}); "
+            f"launches {launched[name]}; {times['sharded']:.2f} ms per batch "
+            f"against {times['unsharded']:.2f} unsharded")
+        del G, infer, outs, want, got
+        torch.cuda.empty_cache()
+    log(f"14.a: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 14.b bf16: the SPADE masker's spade_cond windows over 4 shards ---
+    t0 = time.perf_counter()
+    _, infer16 = build_spatial_infer_fn(load_opts(commandline_opts=SPADE_MASKER),
+                                        [SPATIAL_DEVICE] * 4,
+                                        dtype=torch.bfloat16, seed=0)
+    windows = []
+    kernel = norms_mod.spade_cond_packed
+
+    def record(seg, pack):
+        windows.append((seg, pack))
+        return kernel(seg, pack)
+
+    norms_mod.spade_cond_packed = record
+    try:
+        infer16(x, uniform=uniform, g_value=g_dev)
+    finally:
+        norms_mod.spade_cond_packed = kernel
+    torch.cuda.synchronize()
+    del infer16
+    wide = [w for w in windows if w[0].shape[3] == 15]
+    if len(windows) != _config_launches("spade_masker", 4)["spade_cond"] \
+            or len(wide) != 4 * MASK_DECODER_CALLS:
+        raise AssertionError(f"14.b recorded {len(windows)} windows, "
+                             f"{len(wide)} at cnc 15")
+    e32, e16 = _hold_windows(torch, windows, "14.b")
+    log(f"14.b the SPADE masker's 4-shard bf16 forward: {len(windows)} "
+        f"spade_cond windows ({len(wide)} at cnc 15, heights "
+        f"{sorted({s.shape[1] for s, _ in wide})}) against spade_cond_plain: "
+        f"f32 max error {e32:.3e}, bf16 {e16:.3e} (within one ulp); "
+        f"{time.perf_counter() - t0:.1f} s")
+    del windows, wide
+    torch.cuda.empty_cache()
+
+    with torch.inference_mode(False), torch.enable_grad():
+        # (14.c runs in the side process: config_rows_tiny)
+
+        # ---- 14.d full-width bf16 train steps, 2 shards beside 1 ---------
+        t0 = time.perf_counter()
+        batch = bench_train.synthetic_batch(BATCH, SIZE, 160, dev)
+        step_ms, peaks = {}, {}
+        for name in ("spade_masker", "deeplabv2"):
+            builder = StepBuilder(load_opts(
+                commandline_opts=SPATIAL_CONFIGS[name]))
+            state = builder.init_state(0, dev)
+            for shards in (1, k):
+                devices = None if shards == 1 else [SPATIAL_DEVICE] * shards
+                state, _ = builder.train_step(state, batch, devices=devices)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                times = []
+                for _ in range(SPATIAL_CONFIG_TIMED):
+                    kernels.reset_launches()
+                    t1 = time.perf_counter()
+                    state, metrics = builder.train_step(state, batch,
+                                                        devices=devices)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t1) * 1e3)
+                if not all(torch.isfinite(v).all() for v in metrics.values()):
+                    raise AssertionError(f"14.d {name}: non-finite losses")
+                counted = dict(kernels.launches)
+                want = {n: (2 * shards if n == "masked_blend" else 0)
+                        for n in MAIN_PATH_LAUNCHES}
+                if counted != want:
+                    raise AssertionError(f"14.d {name}, {shards} shards: "
+                                         f"launches {counted}, not {want}")
+                step_ms[(name, shards)] = statistics.median(times)
+                peaks[(name, shards)] = \
+                    torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                log(f"14.d {name} bf16 train_step, {shards} shard(s) (640^2, "
+                    f"{BATCH} per domain): p50 {step_ms[(name, shards)]:.2f} "
+                    f"ms of {SPATIAL_CONFIG_TIMED} ("
+                    + ", ".join(f"{t:.2f}" for t in times) + f"), peak "
+                    f"{peaks[(name, shards)]:.2f} GiB, launches {counted}")
+            del builder, state, metrics
+            torch.cuda.empty_cache()
+        del batch
+        log(f"14.d: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 14.e apply_events --spatial and bench --spatial --stage masker ---
+    t0 = time.perf_counter()
+    opts = load_opts(commandline_opts=CONFIG_RUNS["classification"])
+    tmp = tempfile.TemporaryDirectory()
+    run_dir = Path(tmp.name) / "run"
+    (run_dir / "checkpoints").mkdir(parents=True)
+    with (run_dir / "opts.yaml").open("w") as f:
+        yaml.safe_dump(json.loads(json.dumps(opts)), f)
+    torch.save({"G": create_generator(opts, seed=0).state_dict()},
+               run_dir / "checkpoints" / "latest_ckpt.pth")
+    rng = np.random.default_rng(6)  # phase 6's photos
+    photos = [(f"photo_{i}", rng.integers(0, 256, shape, np.uint8))
+              for i, shape in enumerate([(720, 1280, 3)] * 4
+                                        + [(1280, 960, 3)] * 3)]
+    rendered = {}
+    for what, flags, devices in (("one", [], None),
+                                 ("spatial", ["--spatial"],
+                                  [SPATIAL_DEVICE] * k)):
+        args = cli.parse_args(["-i", ".", "-b", str(BATCH), "-r",
+                               str(run_dir), *flags])
+        imgs = {}
+        infer = cli.load_model(args, devices)
+        kernels.reset_launches()
+        n_batches = cli.render(
+            photos, args, lambda n, e, img: imgs.__setitem__((n, e),
+                                                             img.copy()),
+            infer=infer)
+        torch.cuda.synchronize()
+        expect = {n: n_batches * v for n, v in _config_launches(
+            "classification", k if flags else 1).items()}
+        if dict(kernels.launches) != expect:
+            raise AssertionError(f"14.e render {flags}: launches "
+                                 f"{dict(kernels.launches)}, expected "
+                                 f"{expect}")
+        rendered[what] = imgs
+        del infer
+    tmp.cleanup()
+    if rendered["spatial"].keys() != rendered["one"].keys() \
+            or len(rendered["one"]) != 3 * len(photos):
+        raise AssertionError("14.e apply_events --spatial wrote other images")
+    diffs = [np.abs(rendered["spatial"][key].astype(int) - v.astype(int))
+             for key, v in rendered["one"].items()]
+    within = float(np.mean([np.mean(d <= 1) for d in diffs]))
+    log(f"14.e apply_events --spatial -r <run dir of depth classification> "
+        f"on ['cuda:0'] * {k} (f32, {len(photos)} photos, -b {BATCH}): "
+        f"{len(diffs)} PNGs within 1 LSB of the unsharded serve on "
+        f"{100 * within:.4f}% of values (max "
+        f"{max(int(d.max()) for d in diffs)} LSB)")
+    if not within >= 0.999:
+        raise AssertionError("14.e apply_events --spatial disagrees")
+    argv = ["--spatial", "--stage", "masker", "--batch", str(BATCH),
+            "--iters", "3", "--warmup", "1", *SPADE_MASKER]
+    line = bench.run_bench(bench.parse_args(argv),
+                           devices=[SPATIAL_DEVICE] * k)
+    torch.cuda.empty_cache()
+    if not (line["value"] > 0 and line["mfu"] <= 1.05 and line["sp"] == k
+            and line["stage"] == "masker"):
+        raise AssertionError(f"14.e bench {argv}: {line}")
+    log(f"14.e bench {' '.join(argv)} on {[SPATIAL_DEVICE] * k} (one card: "
+        f"no scaling): {json.dumps(line)}")
+    log(f"14.e: {time.perf_counter() - t0:.1f} s")
+    log(f"row-sharded configurations phase: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# the side process: the checks that hold the card to a reference and time
+# nothing, in a process of their own beside phases 9-11
+SIDE_TIMEOUT = 900  # seconds the side process may take, its start included
+
+
+def side_main(path: str, threads: int) -> None:
+    """The side process (``python -c``, started by ``_start_side``): phase
+    9's card against the CPU (``config_cpu_checks``), 13.e's pool check and
+    13.e(a) (``option_rows_tiny``) and 14.c (``config_rows_tiny``): bars
+    that what runs beside them on the card cannot move (1 LSB, float64),
+    each in the grad mode it has in its phase, on the parent's number of
+    torch threads (so that the CPU's f32 results are the parent's) with
+    TF32 off; writes its log lines to ``path`` (JSON). A failed check
+    exits non-zero."""
+    global _SINK
+    import torch
+
+    _SINK = []
+    torch.set_num_threads(threads)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda")
+    for fn, grad in ((config_cpu_checks, False), (option_rows_tiny, True),
+                     (config_rows_tiny, True)):
+        with torch.inference_mode(not grad), torch.set_grad_enabled(grad):
+            fn(torch, dev)
+    torch.cuda.synchronize()
+    Path(path).write_text(json.dumps(_SINK))
+
+
+def _start_side(torch):
+    """Start ``side_main`` in a process of its own from a thread of this
+    process; returns a function that waits for it and returns its log
+    lines."""
+    import tempfile
+
+    threads = torch.get_num_threads()
+
+    def call() -> list:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / "side.json"
+            proc = subprocess.run(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke."
+                 f"side_main({str(out)!r}, {threads})"], cwd=ROOT,
+                capture_output=True, text=True, timeout=SIDE_TIMEOUT)
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"the side process failed (rc {proc.returncode}):\n"
+                    f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+            return json.loads(out.read_text())
+
+    return _in_thread("the side process on cuda:0", call)
+
+
 def main() -> int:
     import torch
 
@@ -3007,8 +3608,6 @@ def main() -> int:
 
 
 def run(torch) -> int:
-    import torch.nn.functional as F
-
     from climategan_torch import kernels
     from climategan_torch.events import fire as fire_mod
     from climategan_torch.events import smog as smog_mod
@@ -3043,18 +3642,23 @@ def run(torch) -> int:
     log("torch", torch.__version__, "cuda", torch.version.cuda)
 
     # ---- 1. build ------------------------------------------------------
+    # nvcc's processes in a thread, Triton's first compile beside them
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    with ThreadPoolExecutor(1) as pool:
+        building = pool.submit(_build.build_all)
+        z = torch.zeros(1, 1, 1, 3, device=dev)
+        masked_blend(z, z, z[..., :1])
+        torch.cuda.synchronize()
+        t_triton = time.perf_counter() - t0
+        logs = building.result()
     log(f"nvcc build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
-    t0 = time.perf_counter()
-    z = torch.zeros(1, 1, 1, 3, device=dev)
-    masked_blend(z, z, z[..., :1])
-    torch.cuda.synchronize()
-    log(f"triton build (first launch): {time.perf_counter() - t0:.2f} s")
+    log(f"triton build (first launch, beside nvcc): {t_triton:.2f} s")
 
     opts = load_opts()
     g = torch.Generator(device=dev).manual_seed(1)
@@ -3370,20 +3974,40 @@ def run(torch) -> int:
             f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
     serving_phase(torch, opts, dev)
+    def phase_9():
+        with torch.inference_mode():
+            return configs_phase(torch, dev, x, uniform, infer,
+                                 calls["spade_cond"])
+
     with torch.inference_mode(False), torch.enable_grad():
         train_launches = training_phase(torch, dev)
-        trainer_launches, data_dir, lists = trainer_phase(torch, dev)
-    configs = configs_phase(torch, dev, x, uniform, infer,
-                            calls["spade_cond"])
+        # phase 9 runs while phase 8's first trainer run trains in its own
+        # process
+        trainer_launches, data_dir, lists, configs = trainer_phase(
+            torch, dev, beside=phase_9)
+    # the f32 card-against-CPU step holds (9.5 here, then 10.1) run with
+    # nothing else on the card
+    spade_step_tiny(torch, dev)
     with torch.inference_mode(False), torch.enable_grad():
-        options = step_options_phase(torch, dev, lists)
+        # the checks that time nothing run beside phases 10.2-11
+        # (side_main), started once 10.1's f32 holds are done; their lines
+        # come before phase 12's
+        sides = []
+        options = step_options_phase(
+            torch, dev, lists, lambda: sides.append(_start_side(torch)))
         ddp_launches = parallel_phase(torch, dev,
                                       Path(data_dir.name) / "run")
     data_dir.cleanup()
+    lines = sides[0]()
+    log("the side process's checks (phase 9's card against the CPU, 13.e's "
+        "pool and 13.e(a), 14.c):")
+    for line in lines:
+        log(line)
     spatial_launches = spatial_phase(torch, dev)
     with torch.inference_mode(False), torch.enable_grad():
         spatial_train = spatial_train_phase(torch, dev)
         spatial_options = spatial_options_phase(torch, dev)
+    spatial_configs = spatial_configs_phase(torch, dev)
     for r in rows:
         r["train_launches"] = train_launches[r["name"]]
         r["ddp_train_launches"] = ddp_launches[r["name"]]
@@ -3399,6 +4023,9 @@ def run(torch) -> int:
             f"{'remat, ' if remat else ''}{k} shard{'s' if k > 1 else ''}":
                 n[r["name"]]
             for (remat, k), n in spatial_options["launches"].items()}
+        r["spatial_config_launches"] = {
+            f"{name}, {SPATIAL_CONFIG_SHARDS} shards": n[r["name"]]
+            for name, n in spatial_configs.items()}
         if r["name"] == "spade_cond":
             r["spade_masker"] = configs["spade_cond"]
         r["step_option_launches"] = {

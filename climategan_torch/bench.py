@@ -29,9 +29,11 @@ aggregate images/s and ``n_devices``. ``--spatial`` splits each image's
 rows over the largest count of cards that divides ``--size``
 (``inference.build_spatial_infer_fn``), and ``--hybrid SP`` the batch over
 dp data groups of SP cards each, dp the largest divisor of the batch up to
-cards / SP (``build_hybrid_infer_fn``), both as the JAX bench does and for
-the whole forward only; the line gives the layout as ``dp`` and ``sp``.
-With one card they run the plain forward, as JAX's do. ``run_bench(args,
+cards / SP (``build_hybrid_infer_fn``), both as the JAX bench does; the
+line gives the layout as ``dp`` and ``sp``. Under them ``--stage masker``
+times ``infer_masker`` and ``--stage painter`` ``paint_rows`` on
+each data group's row-sharded images (and a mask made of them). With one
+card they run the plain forward, as JAX's do. ``run_bench(args,
 devices=...)`` takes the devices to use in place of the visible cards (a
 device may repeat).
 """
@@ -92,10 +94,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = parser.parse_args(argv)
     if args.mesh and args.stage != "all":
         parser.error("--mesh benches the whole forward (--stage all)")
-    if (args.spatial or args.hybrid) and args.stage != "all":
-        parser.error("--spatial and --hybrid bench the whole forward "
-                     "(--stage all); a row-sharded masker or painter stage "
-                     "is ROADMAP A.11b-3")
     if args.hybrid < 0:
         parser.error("--hybrid takes a row shard count >= 1")
     for k, v in CONFIGS.get(args.config, {}).items():
@@ -164,6 +162,33 @@ def layout(args, n: int) -> Tuple[int, int]:
     return 1, 1
 
 
+def stage_forward(args, G, infer, x, devices, dp: int, sp: int, dtype,
+                  gen=None):
+    """The call that ``args.stage`` times on the NHWC batch ``x``: the
+    whole ``infer``; ``infer_masker``'s mask or ``paint`` (of a mask made
+    of x) on the NCHW batch, or under row shards (sp > 1) on each of the
+    dp data groups' images with their rows over the group's sp devices
+    (``infer_masker`` on ``Rows``, ``paint_rows``). Returns the list of the
+    groups' outputs (one without row shards)."""
+    from climategan_torch.inference import _indexed
+    from climategan_torch.parallel import spatial
+    from climategan_torch.parallel.mesh import hybrid_groups
+
+    if args.stage == "all":
+        return lambda: [infer(x, generator=gen)]
+    if sp > 1:
+        groups = hybrid_groups([_indexed(d) for d in devices], dp, sp)
+        per = x.shape[0] // dp
+        xs = [spatial.shard_rows(x[g * per:(g + 1) * per], groups[g], dtype,
+                                 dim=1) for g in range(dp)]
+    else:
+        xs = [x.to(dtype).permute(0, 3, 1, 2).contiguous()]
+    if args.stage == "masker":
+        return lambda: [G.infer_masker(xc)[2] for xc in xs]
+    ms = [spatial.each(lambda t: (t[:, :1] > 0).to(dtype), xc) for xc in xs]
+    return lambda: [G.paint(mc, xc) for mc, xc in zip(ms, xs)]
+
+
 @torch.inference_mode()
 def run_bench(args, devices=None) -> dict:
     from climategan_torch import kernels
@@ -205,18 +230,7 @@ def run_bench(args, devices=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.rand(args.batch, args.size, args.size, 3, device=device,
                    generator=gen) * 2 - 1
-    xc = x.to(dtype).permute(0, 3, 1, 2).contiguous()
-    if args.stage == "masker":
-        def forward():
-            return G.infer_masker(xc)[2]
-    elif args.stage == "painter":
-        mc = (xc[:, :1] > 0).to(dtype)
-
-        def forward():
-            return G.paint(mc, xc)
-    else:
-        def forward():
-            return infer(x, generator=gen)
+    forward = stage_forward(args, G, infer, x, devices, dp, sp, dtype, gen)
 
     flops, plain_calls = count_flops(forward)
     before = kernels.launches["spade_cond"]

@@ -37,7 +37,6 @@ from climategan_torch.models.generator import (
     CLOUDY_RES,
     GenConfig,
     OmniGenerator,
-    check_rows,
     create_generator,
 )
 from climategan_torch.ops.image import unit_range_to_uint8
@@ -250,13 +249,14 @@ def _indexed(device) -> torch.device:
 
 def _row_replicas(opts, devices: Sequence, kwargs):
     """(the devices with their index, G of the first, ``infer`` of the
-    first, ``run``): one ``build_infer_fn`` replica per distinct device,
-    linked for the sharded forward (``spatial.link_replicas``); ``run(xr,
-    uniform, g_value, gray_mean)`` is the forward of ``build_infer_fn`` on
-    a row-sharded batch ``xr`` with the draws given, its outputs gathered
-    as one NHWC batch on the first shard's device. The configuration must
-    have row-sharded forwards (``generator.check_rows``)."""
-    check_rows(GenConfig.from_opts(opts))
+    first, ``masker``, ``events``): one ``build_infer_fn`` replica per
+    distinct device, linked for the sharded forward
+    (``spatial.link_replicas``); ``masker(xr)`` is ``infer_masker`` on a
+    row-sharded batch ``xr`` and ``events(xr, masked, uniform, g_value,
+    gray_mean, z, largest)`` the rest of ``build_infer_fn``'s forward on
+    its (d, s, m), with the draws given (``largest``: the batch's largest
+    depth bucket where ``xr`` is a part of it), its outputs gathered as
+    one NHWC batch on the first shard's device."""
     devs = [_indexed(d) for d in devices]
     built = {d: build_infer_fn(opts, device=d, **kwargs)
              for d in dict.fromkeys(devs)}
@@ -269,21 +269,23 @@ def _row_replicas(opts, devices: Sequence, kwargs):
     quantize = kwargs.get("quantize", True)
     fire_kw, smog_kw = event_kwargs(opts)
 
-    def run(xr: Rows, uniform, g_value, gray_mean=None):
-        d, s, m = G0.infer_masker_rows(xr)
+    def events(xr: Rows, masked, uniform, g_value, gray_mean=None, z=None,
+               largest=None):
+        d, s, m = masked
         out = {}
         if "flood" not in ignore:
             mb = (m.map(lambda p: (p > bin_value).to(dtype))
                   if bin_value >= 0 else m)
-            out["flood"] = (G0.paint_cloudy_rows(mb, xr, s, uniform)
-                            if cloudy else G0.paint_rows(mb, xr))
+            out["flood"] = (G0.paint_cloudy_rows(mb, xr, s, uniform, z=z)
+                            if cloudy else G0.paint_rows(mb, xr, z=z))
         if "wildfire" not in ignore:
             out["wildfire"] = add_fire_rows(
                 xr.map(lambda p: p.float()), s.map(lambda p: p.float()),
                 g_value, gray_mean=gray_mean, **fire_kw)
         if "smog" not in ignore:
-            out["smog"] = add_smog_rows(xr.map(lambda p: p.float()),
-                                        d.map(lambda p: p.float()), **smog_kw)
+            out["smog"] = add_smog_rows(
+                xr.map(lambda p: p.float()),
+                G0.depth_map(d, largest).map(lambda p: p.float()), **smog_kw)
         if quantize:
             # per image, with the whole image's min-max
             out = {k: spatial.normalize(v).map(
@@ -292,29 +294,31 @@ def _row_replicas(opts, devices: Sequence, kwargs):
         return {k: spatial.gather_rows(v, xr.devices[0], nhwc=True)
                 for k, v in out.items()}
 
-    return devs, G0, infer0, run
+    return devs, G0, infer0, G0.infer_masker, events
 
 
 def build_spatial_infer_fn(opts, devices: Sequence, divide_rows: bool = False,
                            **kwargs) -> Tuple[OmniGenerator, callable]:
     """``build_infer_fn`` with each image's rows split over ``devices`` (a
-    device may repeat) in one process; returns ``(G of the first device,
-    infer)`` with ``infer``'s signature (no ``z``: the row-sharded painter
-    is a ``no_z`` one). Every map of the forward is split by the
-    partition rule of ``parallel/spatial.py`` and each shard runs on its
-    device; every kernel launches once per shard with rows (``spade_cond``
-    on each SPADE's conditioning window), and the outputs come back as one
-    batch on the first device. As the single forward: the draws are made
-    once, in its order, from ``generator`` (else the first device's
-    generator); every per-image reduction is the whole image's.
+    device may repeat) in one process, for every generator configuration;
+    returns ``(G of the first device, infer)`` with ``infer``'s signature.
+    Every map of the forward is split by the partition rule of
+    ``parallel/spatial.py`` and each shard runs on its device; every
+    kernel launches once per shard with rows (``spade_cond`` on each
+    SPADE's conditioning window), and the outputs come back as one batch
+    on the first device. As the single forward: the draws (the painter's
+    z too, where it takes one and none is given) are made once, in its
+    order, from ``generator`` (else the first device's generator), and z
+    is split by rows; every per-image reduction is the whole image's, and
+    a depth classification head's largest bucket the whole batch's.
     ``divide_rows``: each batch runs on the first ``spatial_size(rows,
     len(devices))`` devices, the JAX CLI's rule (with a note on stderr
     where that leaves devices idle); else on all of them, evenly or not.
-    One device is the plain forward. Configurations other than the
-    default are refused (ROADMAP A.11b-3)."""
+    One device is the plain forward. ``infer.unsharded`` is the first
+    device's plain forward on the same model."""
     if len(devices) == 1:
         return build_infer_fn(opts, device=devices[0], **kwargs)
-    devs, G0, infer0, run = _row_replicas(opts, devices, kwargs)
+    devs, G0, infer0, masker, events = _row_replicas(opts, devices, kwargs)
     dtype = kwargs.get("dtype", torch.bfloat16)
     ignore = tuple(kwargs.get("ignore_event", ()))
     cloudy = kwargs.get("cloudy", True)
@@ -335,13 +339,12 @@ def build_spatial_infer_fn(opts, devices: Sequence, divide_rows: bool = False,
                       f"{len(devs)} devices; using {k}", file=sys.stderr)
         if k == 1:
             return infer0(x, uniform, generator, g_value, z)
-        if z is not None:
-            raise ValueError("row-sharded inference takes no painter z")
-        uniform, _, g_value = draws(G0, x.shape, ignore, cloudy, uniform,
-                                    None, g_value, generator, devs[0])
-        return run(spatial.shard_rows(x, devs[:k], dtype, dim=1), uniform,
-                   g_value)
+        uniform, z, g_value = draws(G0, x.shape, ignore, cloudy, uniform, z,
+                                    g_value, generator, devs[0])
+        xr = spatial.shard_rows(x, devs[:k], dtype, dim=1)
+        return events(xr, masker(xr), uniform, g_value, z=z)
 
+    infer.unsharded = infer0
     return G0, infer
 
 
@@ -351,15 +354,16 @@ def build_hybrid_infer_fn(opts, devices: Sequence, sp: int, **kwargs
     groups of sp adjacent devices (``mesh.hybrid_groups``); a batch of n
     runs on the first ``mesh_size(n, groups)`` groups, group g on batch
     rows [g n / dp, (g + 1) n / dp), each image's rows split over the
-    group's devices (``build_spatial_infer_fn``'s forward). The draws are
-    made once for the whole batch and the wildfire's gray mean is the whole
-    batch's, from every group's sums, as ``build_mesh_infer_fn`` does; the
-    outputs come back as one batch on the first device. sp = 1 is
-    ``build_mesh_infer_fn``."""
+    group's devices (``build_spatial_infer_fn``'s forward). The draws (the
+    painter's z too) are made once for the whole batch, and the wildfire's
+    gray mean and a depth classification head's largest bucket are the
+    whole batch's, from every group's, as ``build_mesh_infer_fn`` does for
+    the gray mean; the outputs come back as one batch on the first device.
+    sp = 1 is ``build_mesh_infer_fn``."""
     if sp == 1:
         return build_mesh_infer_fn(opts, devices, **kwargs)
     groups = hybrid_groups(devices, len(devices) // sp, sp)
-    devs, G0, infer0, run = _row_replicas(
+    devs, G0, infer0, masker, events = _row_replicas(
         opts, [d for g in groups for d in g], kwargs)
     groups = hybrid_groups(devs, len(groups), sp)
     dtype = kwargs.get("dtype", torch.bfloat16)
@@ -373,12 +377,10 @@ def build_hybrid_infer_fn(opts, devices: Sequence, sp: int, **kwargs
               g_value=None, z: Optional[torch.Tensor] = None):
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
-        if z is not None:
-            raise ValueError("row-sharded inference takes no painter z")
         n = x.shape[0]
         dp = mesh_size(n, len(groups))
-        uniform, _, g_value = draws(G0, x.shape, ignore, cloudy, uniform,
-                                    None, g_value, generator, first)
+        uniform, z, g_value = draws(G0, x.shape, ignore, cloudy, uniform, z,
+                                    g_value, generator, first)
         per = n // dp
         xrs = [spatial.shard_rows(x[g * per:(g + 1) * per], groups[g], dtype,
                                   dim=1) for g in range(dp)]
@@ -388,8 +390,16 @@ def build_hybrid_infer_fn(opts, devices: Sequence, sp: int, **kwargs
                     for xr in xrs]
             total = sum(s.to(first) for s, _ in sums)
             gray_mean = (total / sum(c for _, c in sums)).float()
-        outs = [run(xr, uniform, g_value,
-                    None if gray_mean is None else gray_mean.to(groups[g][0]))
+        masked = [masker(xr) for xr in xrs]
+        largest = None
+        if "smog" not in ignore and G0.cfg.d_classify_buckets and dp > 1:
+            largest = torch.stack([G0.bucket_max(G0.bucket_index(d))
+                                   .to(first) for d, _, _ in masked]).amax()
+        outs = [events(xr, masked[g], uniform, g_value,
+                       None if gray_mean is None
+                       else gray_mean.to(groups[g][0]),
+                       None if z is None else z[g * per:(g + 1) * per],
+                       largest)
                 for g, xr in enumerate(xrs)]
         return gather(outs, first)
 

@@ -323,51 +323,63 @@ class SPADEResnetBlock(nn.Module):
 
     def forward_rows(self, x: Rows, cond: Rows,
                      update_sn: bool = False) -> Rows:
-        """The forward on a row-sharded ``x`` with instance-norm SPADEs;
-        ``cond`` the row-sharded conditioning map at any size. In eval mode
-        each shard's ``spade_cond`` launches run on the conditioning rows
-        of its own rows with a 2-row halo (``norms.spade_windows``); in
-        train mode each SPADE's plain convs run on the conditioning rows
-        (``SPADE.forward_train_rows``)."""
-        if self.norm_0.param_free_norm is not None:
-            raise ValueError("row-sharded SPADE blocks take instance norms")
+        """The forward on a row-sharded ``x``; ``cond`` the row-sharded
+        conditioning map at any size. Each SPADE normalizes through
+        ``SPADE.normalize_rows``: an instance norm over the whole map, or
+        its batch norm (eval: the running statistics on each shard; train:
+        the statistics of every shard). In eval mode each shard's
+        ``spade_cond`` launches run on the conditioning rows of its own
+        rows with a 2-row halo (``norms.spade_windows``), norm_s and
+        norm_0 as one dual launch; in train mode each SPADE's plain convs
+        run on the conditioning rows (``SPADE.forward_train_rows``)."""
         if self.training:
             return self._train_rows(x, cond, update_sn)
         dtype = x.dtype
         seg = spatial.Resized(cond, (x.h, x.w), "nearest")
         wins = spade_windows(x, seg)
-        normed = spatial.instance_norm(x)
+        normed = self._normalized_rows(x)
         if self.learned_shortcut:
             gbs = spade_cond_rows(wins, lambda d: spatial.local(
                 self, d).current_shortcut_pack(dtype))
-            x_s = spatial.conv2d(SPADE.modulate_rows(normed, gbs, 0),
+            x_s = spatial.conv2d(SPADE.modulate_rows(normed["s"], gbs, 0),
                                  self.conv_s)
-            dx = SPADE.modulate_rows(normed, gbs, 1)
+            dx = SPADE.modulate_rows(normed["0"], gbs, 1)
         else:
             gbs = spade_cond_rows(wins, lambda d: spatial.local(
                 self.norm_0, d).current_pack(dtype))
-            x_s, dx = x, SPADE.modulate_rows(normed, gbs, 0)
+            x_s, dx = x, SPADE.modulate_rows(normed["0"], gbs, 0)
         dx = spatial.conv2d(dx.map(lrelu), self.conv_0)
         gbs = spade_cond_rows(wins, lambda d: spatial.local(
             self.norm_1, d).current_pack(dtype))
-        dx = SPADE.modulate_rows(spatial.instance_norm(dx), gbs, 0)
+        dx = SPADE.modulate_rows(self.norm_1.normalize_rows(dx), gbs, 0)
         dx = spatial.conv2d(dx.map(lrelu), self.conv_1)
         out = x_s.zip(dx, torch.add)
         return out.map(lrelu) if self.last_activation == "lrelu" else out
+
+    def _normalized_rows(self, x: Rows) -> dict:
+        """x normalized for norm_s ("s", with a learned shortcut) and norm_0
+        ("0"): one instance norm for both, or each SPADE's batch norm."""
+        spades = {"0": self.norm_0}
+        if self.learned_shortcut:
+            spades = {"s": self.norm_s, **spades}
+        if self.norm_0.param_free_norm is None:
+            normed = spatial.instance_norm(x)
+            return {key: normed for key in spades}
+        return {key: spade.normalize_rows(x) for key, spade in spades.items()}
 
     def _train_rows(self, x: Rows, cond: Rows, update_sn: bool) -> Rows:
         """``forward`` in train mode on row-sharded maps, u/v stored in the
         same order (conv_s, conv_0, conv_1)."""
         seg = spatial.Resized(cond, (x.h, x.w), "nearest").rows(x.devices)
         seg = seg.map(lambda p: p.to(x.dtype))
-        normed = spatial.instance_norm(x)
+        normed = self._normalized_rows(x)
         if self.learned_shortcut:
             x_s = spatial.conv2d(
-                self.norm_s.forward_train_rows(x, seg, normed), self.conv_s,
-                update_sn=update_sn)
+                self.norm_s.forward_train_rows(x, seg, normed["s"]),
+                self.conv_s, update_sn=update_sn)
         else:
             x_s = x
-        dx = self.norm_0.forward_train_rows(x, seg, normed)
+        dx = self.norm_0.forward_train_rows(x, seg, normed["0"])
         dx = spatial.conv2d(dx.map(lrelu), self.conv_0, update_sn=update_sn)
         dx = self.norm_1.forward_train_rows(dx, seg).map(lrelu)
         dx = spatial.conv2d(dx, self.conv_1, update_sn=update_sn)

@@ -111,10 +111,14 @@ class DeepLabV3Decoder(nn.Module):
         return resize(s, self.target_size, "bilinear", align_corners=True)
 
     def forward_rows(self, z, z_depth: Optional[Rows] = None) -> Rows:
-        """The forward (ASPP decoder) on row-sharded maps."""
+        """The forward on row-sharded maps."""
         z_high, z_low = z
         if z_depth is not None and self.use_dada:
             z_high = z_high.zip(z_depth, torch.mul)
-        s = self.decoder.forward_rows(self.aspp.forward_rows(z_high), z_low)
+        if hasattr(self, "head"):
+            s = self.head.forward_rows(z_high)
+        else:
+            s = self.decoder.forward_rows(self.aspp.forward_rows(z_high),
+                                          z_low)
         return spatial.resize(s, self.target_size, "bilinear",
                               align_corners=True)

@@ -14,8 +14,10 @@ decoder.
 * ``DeepLabV2Decoder``: ASPP branches at dilations 1, 6, 12, 18 and a
   global-average-pool branch, a 1x1 merge, then a head of two 3x3 convs
   with dropout and a 1x1 classifier, bilinear (align_corners) to the
-  target size. In train mode dropout draws from torch's generator of the
-  device.
+  target size. In train mode dropout draws its masks from torch's
+  generator of the device (``dropout``); on a row-sharded map each mask
+  is drawn for the whole map on the first shard's device and sliced by
+  rows, so the sharded forward drops what the unsharded one drops.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ import torch.nn.functional as F
 from climategan_torch.models.blocks import ResBlocks
 from climategan_torch.models.norms import BatchNorm2d
 from climategan_torch.ops.interpolate import resize
+from climategan_torch.parallel import spatial
+from climategan_torch.parallel.spatial import Rows
 
 
 class FrozenBatchNorm2d(BatchNorm2d):
@@ -45,6 +49,28 @@ class FrozenBatchNorm2d(BatchNorm2d):
 
 def max_pool_3x3_s2_ceil(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 3, 2, 0, ceil_mode=True)
+
+
+def dropout_mask(shape, p: float, dtype, device) -> torch.Tensor:
+    """A train-mode dropout mask of ``shape``: each value kept (1 / (1 -
+    p)) with probability 1 - p, else 0, drawn from the device's
+    generator."""
+    keep = torch.empty(shape, dtype=dtype, device=device).bernoulli_(1.0 - p)
+    return keep / (1.0 - p)
+
+
+def dropout(y, p: float, training: bool):
+    """Dropout of a tensor or a row-sharded map (one mask for the whole
+    map, drawn on its first shard's device and sliced by rows); the
+    identity in eval mode."""
+    if not training:
+        return y
+    if not isinstance(y, Rows):
+        return y * dropout_mask(y.shape, p, y.dtype, y.device)
+    n, c, _, w = y.parts[0].shape
+    mask = dropout_mask((n, c, y.h, w), p, y.dtype, y.devices[0])
+    return Rows([t * mask[:, :, y.starts[i]:y.starts[i + 1]].to(t.device)
+                 for i, t in enumerate(y.parts)])
 
 
 class BottleneckV2(nn.Module):
@@ -71,6 +97,16 @@ class BottleneckV2(nn.Module):
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(y + residual)
 
+    def forward_rows(self, x: Rows) -> Rows:
+        """The forward on a row-sharded map (conv1 strides)."""
+        y = self.bn1.forward_rows(spatial.conv2d(x, self.conv1)).map(F.relu)
+        y = self.bn2.forward_rows(spatial.conv2d(y, self.conv2)).map(F.relu)
+        y = self.bn3.forward_rows(spatial.conv2d(y, self.conv3))
+        residual = x if self.downsample is None else \
+            self.downsample[1].forward_rows(
+                spatial.conv2d(x, self.downsample[0]))
+        return y.zip(residual, lambda a, b: F.relu(a + b))
+
 
 class ResNetMultiV2(nn.Module):
     def __init__(self, layers: Sequence[int] = (3, 4, 23, 3), n_res: int = 4):
@@ -96,6 +132,17 @@ class ResNetMultiV2(nn.Module):
         y = self.layer4(self.layer3(self.layer2(self.layer1(y))))
         return self.layer_res(y, update_sn)
 
+    def forward_rows(self, x: Rows, update_sn: bool = False) -> Rows:
+        """The forward on a row-sharded image: the stem's 7x7/2 conv and
+        the ceil pool (its last window's overhang -inf) read across
+        shards, as do layer3's and layer4's dilated convs."""
+        y = self.bn1.forward_rows(spatial.conv2d(x, self.conv1)).map(F.relu)
+        y = spatial.max_pool2d(y, 3, 2, 0, ceil_mode=True)
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in layer:
+                y = block.forward_rows(y)
+        return self.layer_res.forward_rows(y, update_sn)
+
 
 class DeeplabV2Encoder(nn.Module):
     """Returns the single 2048-channel feature map at H/8."""
@@ -106,6 +153,9 @@ class DeeplabV2Encoder(nn.Module):
 
     def forward(self, x):
         return self.model(x)
+
+    def forward_rows(self, x: Rows) -> Rows:
+        return self.model.forward_rows(x)
 
 
 class ASPPModuleV2(nn.Module):
@@ -118,6 +168,10 @@ class ASPPModuleV2(nn.Module):
 
     def forward(self, x):
         return F.relu(self.bn(self.atrous_conv(x)))
+
+    def forward_rows(self, x: Rows) -> Rows:
+        return self.bn.forward_rows(spatial.conv2d(x, self.atrous_conv)).map(
+            F.relu)
 
 
 class ASPPV2(nn.Module):
@@ -136,7 +190,26 @@ class ASPPV2(nn.Module):
         y = torch.cat([self.aspp1(z), self.aspp2(z), self.aspp3(z),
                        self.aspp4(z), gap], dim=1)
         y = F.relu(self.bn1(self.conv1(y)))
-        return F.dropout(y, 0.5, self.training)
+        return dropout(y, 0.5, self.training)
+
+    def forward_rows(self, z: Rows) -> Rows:
+        """The forward on a row-sharded map. The pooled branch is one 1x1
+        map per image: the whole map's mean, then its conv, batch norm and
+        relu once (in train mode a batch norm over k copies of it would
+        take k times its gradient), broadcast to every shard's rows."""
+        pooled = spatial.mean(z)
+        _, conv, bn, relu = (self.global_avg_pool if self.training else
+                             spatial.local(self.global_avg_pool,
+                                           pooled.device))
+        gap = relu(bn(conv(pooled.to(conv.weight.device))))
+        feats = [m.forward_rows(z) for m in (self.aspp1, self.aspp2,
+                                             self.aspp3, self.aspp4)]
+        feats.append(Rows([gap.to(p.device).expand(-1, -1, p.shape[2],
+                                                    p.shape[3])
+                           for p in feats[0].parts]))
+        y = spatial.conv2d(feats[0].cat(*feats[1:]), self.conv1)
+        y = self.bn1.forward_rows(y).map(F.relu)
+        return dropout(y, 0.5, self.training)
 
 
 class DeepLabV2Decoder(nn.Module):
@@ -159,5 +232,27 @@ class DeepLabV2Decoder(nn.Module):
             z = z[0]
         if z_depth is not None and self.use_dada:
             z = z * z_depth
-        y = self.conv(self.aspp(z))
+        y = self.aspp(z)
+        for layer in self.conv:
+            y = (dropout(y, layer.p, self.training)
+                 if isinstance(layer, nn.Dropout) else layer(y))
         return resize(y, self.target_size, "bilinear", align_corners=True)
+
+    def forward_rows(self, z, z_depth=None) -> Rows:
+        """The forward on row-sharded maps."""
+        if isinstance(z, (list, tuple)):
+            z = z[0]
+        if z_depth is not None and self.use_dada:
+            z = z.zip(z_depth, torch.mul)
+        y = self.aspp.forward_rows(z)
+        for layer in self.conv:
+            if isinstance(layer, nn.Dropout):
+                y = dropout(y, layer.p, self.training)
+            elif isinstance(layer, nn.Conv2d):
+                y = spatial.conv2d(y, layer)
+            elif isinstance(layer, BatchNorm2d):
+                y = layer.forward_rows(y)
+            else:
+                y = y.map(layer)
+        return spatial.resize(y, self.target_size, "bilinear",
+                              align_corners=True)

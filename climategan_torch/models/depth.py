@@ -105,3 +105,10 @@ class BaseDepthDecoder(BaseDecoder):
     def forward(self, z, update_sn: bool = False):
         d = super().forward(z, None, update_sn)
         return resize(d, self.target_size, "bilinear", align_corners=True), None
+
+    def forward_rows(self, z, update_sn: bool = False):
+        """The forward on row-sharded maps: (depth or bucket logits as
+        ``Rows``, None)."""
+        d = super().forward_rows(z, None, update_sn)
+        return spatial.resize(d, self.target_size, "bilinear",
+                              align_corners=True), None

@@ -223,9 +223,9 @@ class OmniGenerator(nn.Module):
         init_weights(self, generator)
 
     # ---- masker ---------------------------------------------------------
-    # encode, depth, segmentation, mask and paint take row-sharded maps
-    # (``spatial.Rows``) as they take tensors, in either mode: the default
-    # configuration's (``check_rows``)
+    # encode, depth, segmentation, make_m_cond, mask, depth_map, paint and
+    # paint_cloudy take row-sharded maps (``spatial.Rows``) as they take
+    # tensors, in either mode, in every configuration
     def encode(self, x):
         if isinstance(x, Rows):
             return self.encoder.forward_rows(x)
@@ -244,51 +244,81 @@ class OmniGenerator(nn.Module):
     def make_m_cond(self, d, s, x=None):
         """The SPADE mask decoder's conditioning: ``cat(normalize(d),
         softmax(s)[, x bilinear (align_corners) to s's size])``, the
-        gradient stopped at d and s with ``m_spade_detach``."""
+        gradient stopped at d and s with ``m_spade_detach``. On row-sharded
+        maps the min-max of d is each image's over every shard."""
+        rows = isinstance(d, Rows)
         if self.cfg.m_spade_detach:
-            d, s = d.detach(), s.detach()
-        cats = [normalize(d), torch.softmax(s, dim=1)]
+            d, s = _detach(d), _detach(s)
+        cats = [spatial.normalize(d) if rows else normalize(d),
+                spatial.each(lambda t: torch.softmax(t, dim=1), s)]
         if self.cfg.m_spade_cond_nc == 15:
             if x is None:
                 raise ValueError("cond_nc 15 needs x")
-            cats.append(resize(x, s.shape[-2:], "bilinear",
+            cats.append(spatial.resize(x, (s.h, s.w), "bilinear",
+                                       align_corners=True) if rows else
+                        resize(x, s.shape[-2:], "bilinear",
                                align_corners=True))
-        return torch.cat(cats, dim=1)
+        return cats[0].cat(*cats[1:]) if rows else torch.cat(cats, dim=1)
 
     def mask(self, z, z_depth=None, sigmoid: bool = True,
              update_sn: bool = False, cond=None, x=None):
         """Mask logits (or their sigmoid) from the encoder's features; the
         SPADE decoder takes ``cond``, or ``make_m_cond`` of the depth and
         seg heads on ``z`` and ``x``, detached."""
-        if spatial.is_rows(z):
-            logits = self.decoders["m"].forward_rows(
-                z, z_depth if self.cfg.m_use_dada else None, update_sn)
-            return logits.map(torch.sigmoid) if sigmoid else logits
+        rows = spatial.is_rows(z)
         if self.cfg.m_use_spade and cond is None:
             d, zd = self.depth(z)
-            cond = self.make_m_cond(d, self.segmentation(z, zd), x).detach()
-        logits = self.decoders["m"](
-            z, cond, z_depth if self.cfg.m_use_dada else None, update_sn)
+            cond = _detach(self.make_m_cond(d, self.segmentation(z, zd), x))
+        z_depth = z_depth if self.cfg.m_use_dada else None
+        if rows:
+            logits = self.decoders["m"].forward_rows(z, cond, z_depth,
+                                                     update_sn)
+            return logits.map(torch.sigmoid) if sigmoid else logits
+        logits = self.decoders["m"](z, cond, z_depth, update_sn)
         return torch.sigmoid(logits) if sigmoid else logits
 
-    def depth_map(self, d: torch.Tensor) -> torch.Tensor:
+    def depth_map(self, d, largest: Optional[torch.Tensor] = None):
         """The depth head's output as one depth map: a classification
         head's bucket logits become their argmax, divided by the batch's
-        largest (JAX ``depth_map``); a regression depth is returned as
-        is."""
-        if d.shape[1] == 1:
+        largest (JAX ``depth_map``; on row-sharded logits the largest over
+        every shard; ``largest``: the whole batch's where d is a part of
+        it); a regression depth is returned as is."""
+        channels = d.parts[0].shape[1] if isinstance(d, Rows) else d.shape[1]
+        if channels == 1:
             return d
-        idx = torch.argmax(d, dim=1, keepdim=True).float()
-        return idx / torch.clamp(idx.max(), min=1e-12)
+        idx = self.bucket_index(d)
+        if largest is None:
+            largest = self.bucket_max(idx)
+        return spatial.each(lambda t: t / torch.clamp(
+            largest.to(t.device), min=1e-12), idx)
+
+    @staticmethod
+    def bucket_index(d):
+        """The argmax bucket of classification logits (a tensor or
+        ``Rows``), as float."""
+        return spatial.each(lambda t: torch.argmax(t, dim=1,
+                                                   keepdim=True).float(), d)
+
+    @staticmethod
+    def bucket_max(idx) -> torch.Tensor:
+        """The largest bucket index of a map of them (a tensor or
+        ``Rows``: the largest over every shard, on the first one's
+        device)."""
+        if not isinstance(idx, Rows):
+            return idx.max()
+        return spatial.all_reduce([p.amax() if p.shape[2] else None
+                                   for p in idx.parts], "max",
+                                  idx.devices[:1])[0]
 
     def infer_masker(self, x):
         """x -> (depth, seg logits, mask), the encoder shared by all heads;
         depth is the depth head's raw output (bucket logits under
-        classification: ``depth_map`` makes a depth map of them)."""
+        classification: ``depth_map`` makes a depth map of them). On a
+        row-sharded image, each as ``Rows``."""
         z = self.encode(x)
         d, z_depth = self.depth(z)
         s = self.segmentation(z, z_depth)
-        cond = (self.make_m_cond(d, s, x).detach() if self.cfg.m_use_spade
+        cond = (_detach(self.make_m_cond(d, s, x)) if self.cfg.m_use_spade
                 else None)
         return d, s, self.mask(z, z_depth, cond=cond)
 
@@ -320,7 +350,8 @@ class OmniGenerator(nn.Module):
         no u/v stored) on its parameters detached, on the plain convs of
         train mode, so the gradient reaches m and x only."""
         if isinstance(x, Rows):
-            return self.paint_rows(m, x, no_paste, update_sn, frozen)
+            return self.paint_rows(m, x, no_paste, update_sn, frozen, z,
+                                   generator)
         m = m.to(x.dtype)
         if not self.cfg.p_no_z and z is None:
             z = self.sample_painter_z(x.shape[0], x.shape[2], x.shape[3],
@@ -355,27 +386,28 @@ class OmniGenerator(nn.Module):
         return paste(x, fake, m)
 
     # ---- row-sharded forwards ---------------------------------------------
-    def infer_masker_rows(self, x: Rows):
-        """``infer_masker`` (eval) on a row-sharded image: (depth, seg
-        logits, mask) as ``Rows``."""
-        z = self.encode(x)
-        d, z_depth = self.depth(z)
-        return d, self.segmentation(z, z_depth), self.mask(z, z_depth)
-
     def paint_rows(self, m: Rows, x: Rows, no_paste: bool = False,
-                   update_sn: bool = False, frozen: bool = False) -> Rows:
-        """``paint`` (``no_z``) on row-sharded maps, ``frozen`` as there;
-        the paste runs on each shard, with its gradient in train mode."""
+                   update_sn: bool = False, frozen: bool = False,
+                   z: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> Rows:
+        """``paint`` on row-sharded maps, ``frozen`` as there; a painter
+        with z takes ``z`` for the whole batch or draws it as ``paint``
+        does, on the first shard's device, and splits its rows. The paste
+        runs on each shard, with its gradient in train mode."""
         m = m.map(lambda p: p.to(x.dtype))
+        if not self.cfg.p_no_z and z is None:
+            z = self.sample_painter_z(x.parts[0].shape[0], x.h, x.w,
+                                      x.dtype, x.devices[0], generator)
+        z = None if z is None else z.to(x.dtype)
         cond = x.zip(m, lambda a, b: a * (1.0 - b))
         if frozen and self.painter.training:
             params = {k: p.detach()
                       for k, p in self.painter.named_parameters()}
             with running_statistics(self.painter):
                 fake = torch.func.functional_call(self.painter, params,
-                                                  (cond,))
+                                                  (cond,), {"z": z})
         else:
-            fake = self.painter.forward_rows(cond, update_sn)
+            fake = self.painter.forward_rows(cond, update_sn, z)
         if self.cfg.p_paste_original_content and not no_paste:
             return paste_rows(x, fake, m)
         return fake
@@ -383,10 +415,12 @@ class OmniGenerator(nn.Module):
     def paint_cloudy_rows(self, m: Rows, x: Rows, s: Rows,
                           uniform: torch.Tensor, sky_idx: int = 9,
                           res: Tuple[int, int] = CLOUDY_RES,
-                          weight: float = 0.8) -> Rows:
+                          weight: float = 0.8,
+                          z: Optional[torch.Tensor] = None) -> Rows:
         """``paint_cloudy`` on row-sharded maps with the Perlin draws
-        ``uniform``: each device computes the whole noise field (its
-        minimum is the field's), each shard blends its rows."""
+        ``uniform`` (and ``z``, a painter's with z): each device computes
+        the whole noise field (its minimum is the field's), each shard
+        blends its rows."""
         s_up = spatial.resize(s, (x.h, x.w), "bilinear", align_corners=False)
         sky = s_up.map(lambda p: (torch.argmax(p, dim=1, keepdim=True)
                                   == sky_idx).to(x.dtype))
@@ -400,35 +434,13 @@ class OmniGenerator(nn.Module):
             parts.append(blend_noise(xp, sp, fields[xp.device][lo:hi],
                                      weight).to(x.dtype))
         m = m.map(lambda p: p.to(x.dtype))
-        fake = self.paint_rows(m, Rows(parts), no_paste=True)
+        fake = self.paint_rows(m, Rows(parts), no_paste=True, z=z)
         return paste_rows(x, fake, m)
 
 
-def check_rows(c: GenConfig,
-               what: str = "row-sharded inference (--spatial, --hybrid)"
-               ) -> None:
-    """Raises unless the configuration ``c`` has row-sharded forwards, in
-    eval and train mode: the default one (ResNet encoder with the ASPP
-    decoder, DADA depth in regression, the base mask decoder, a ``no_z``
-    painter with instance-norm SPADEs and no final shortcut), at any
-    widths and depths. ``what``: the caller, for the message."""
-    other = {
-        "gen.encoder.architecture": (c.encoder_arch, "deeplabv3"),
-        "gen.deeplabv3.backbone": (c.backbone, "resnet"),
-        "gen.s.architecture": (c.s_architecture, "deeplabv3"),
-        "gen.d.architecture": (c.d_architecture, "dada"),
-        "gen.d.classify.enable": (bool(c.d_classify_buckets), False),
-        "gen.m.use_spade": (c.m_use_spade, False),
-        "gen.p.no_z": (c.p_no_z, True),
-        "gen.p.use_final_shortcut": (c.p_use_final_shortcut, False),
-        "gen.p.spade_param_free_norm": (c.p_spade_param_free_norm,
-                                        "instance"),
-    }
-    bad = [f"{k}={v!r}" for k, (v, want) in other.items() if v != want]
-    if bad:
-        raise NotImplementedError(
-            f"{what} runs the default generator configuration; "
-            + ", ".join(bad) + " is not row-sharded yet (ROADMAP A.11b-3)")
+def _detach(t):
+    """``t`` (a tensor or ``Rows``) detached."""
+    return spatial.each(lambda p: p.detach(), t)
 
 
 def paste_rows(x: Rows, fake: Rows, m: Rows) -> Rows:

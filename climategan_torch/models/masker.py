@@ -24,6 +24,8 @@ from climategan_torch.models.blocks import (
     SPADEResnetBlock,
 )
 from climategan_torch.ops.interpolate import resize, upsample_nearest
+from climategan_torch.parallel import spatial
+from climategan_torch.parallel.spatial import Rows
 
 
 class MaskBaseDecoder(BaseDecoder):
@@ -40,7 +42,8 @@ class MaskBaseDecoder(BaseDecoder):
     def forward(self, z, cond=None, z_depth=None, update_sn: bool = False):
         return super().forward(z, z_depth, update_sn)
 
-    def forward_rows(self, z, z_depth=None, update_sn: bool = False):
+    def forward_rows(self, z, cond=None, z_depth=None,
+                     update_sn: bool = False) -> Rows:
         """Mask logits of row-sharded features."""
         return super().forward_rows(z, z_depth, update_sn)
 
@@ -94,3 +97,24 @@ class MaskSpadeDecoder(nn.Module):
         for block in self.spade_blocks:
             y = upsample_nearest(block(y, cond, update_sn), 2)
         return self.mask_conv(y, update_sn)
+
+    def forward_rows(self, z, cond: Rows, z_depth=None,
+                     update_sn: bool = False) -> Rows:
+        """``forward`` on row-sharded features and conditioning; each SPADE
+        block reads the conditioning rows of its own rows (nearest-resized
+        to its size) with their halo."""
+        if isinstance(z, (list, tuple)):
+            z_h, z_l = z
+            z_l = spatial.resize(self.low_level_conv.forward_rows(z_l,
+                                                                  update_sn),
+                                 (z_h.h, z_h.w), "bilinear",
+                                 align_corners=False)
+            if self.use_proj:
+                z_h = self.high_level_conv.forward_rows(z_h, update_sn)
+            y = self.merge_feats_conv.forward_rows(z_h.cat(z_l), update_sn)
+        else:
+            y = self.fc_conv.forward_rows(z, update_sn)
+        for block in self.spade_blocks:
+            y = spatial.upsample_nearest(block.forward_rows(y, cond,
+                                                            update_sn), 2)
+        return self.mask_conv.forward_rows(y, update_sn)

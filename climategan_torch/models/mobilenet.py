@@ -19,6 +19,8 @@ import torch.nn.functional as F
 
 from climategan_torch.models.norms import BatchNorm2d
 from climategan_torch.ops.interpolate import upsample_nearest
+from climategan_torch.parallel import spatial
+from climategan_torch.parallel.spatial import Rows
 
 
 class ConvBNReLU6(nn.Module):
@@ -31,6 +33,12 @@ class ConvBNReLU6(nn.Module):
 
     def forward(self, x):
         return F.relu6(self.bn(self.conv(x)))
+
+    def forward_rows(self, x: Rows) -> Rows:
+        """The forward on a row-sharded map (the depthwise convs grouped
+        on each shard's window)."""
+        return self.bn.forward_rows(spatial.conv2d(x, self.conv)).map(
+            F.relu6)
 
 
 class InvertedResidual(nn.Module):
@@ -50,6 +58,15 @@ class InvertedResidual(nn.Module):
     def forward(self, x):
         y = self.conv(x)
         return x + y if self.use_res else y
+
+    def forward_rows(self, x: Rows) -> Rows:
+        y = x
+        for layer in self.conv:
+            if isinstance(layer, nn.Conv2d):
+                y = spatial.conv2d(y, layer)
+            else:
+                y = layer.forward_rows(y)
+        return x.zip(y, torch.add) if self.use_res else y
 
 
 # (t, c, n, s) per stage block1..block5
@@ -87,6 +104,17 @@ class MobileNetV2Encoder(nn.Module):
         c4 = self.block5(self.block4(self.block3(c1)))
         return upsample_nearest(c4, 2), c1
 
+    def forward_rows(self, x: Rows):
+        """The forward on a row-sharded image: (c4 upsampled, c1) as
+        ``Rows``."""
+        y = self.conv1.forward_rows(x)
+        for k in range(1, 6):
+            for block in getattr(self, f"block{k}"):
+                y = block.forward_rows(y)
+            if k == 2:
+                c1 = y
+        return spatial.upsample_nearest(y, 2), c1
+
 
 class SeparableConvBlock(nn.Module):
     def __init__(self, cin: int, planes: int, dilation: int = 1):
@@ -103,6 +131,13 @@ class SeparableConvBlock(nn.Module):
         y = F.relu(b["bn_depth"](b["depthwise"](x)))
         return F.relu(b["bn_point"](b["pointwise"](y)))
 
+    def forward_rows(self, x: Rows) -> Rows:
+        b = self.block
+        y = b["bn_depth"].forward_rows(spatial.conv2d(x, b["depthwise"]))
+        y = b["bn_point"].forward_rows(spatial.conv2d(y.map(F.relu),
+                                                      b["pointwise"]))
+        return y.map(F.relu)
+
 
 class DeepLabHead(nn.Module):
     def __init__(self, cin: int, nclass: int):
@@ -113,3 +148,7 @@ class DeepLabHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.block(x)
+
+    def forward_rows(self, x: Rows) -> Rows:
+        sep0, sep1, out = self.block
+        return spatial.conv2d(sep1.forward_rows(sep0.forward_rows(x)), out)

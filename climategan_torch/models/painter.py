@@ -61,10 +61,7 @@ class PainterSpadeDecoder(nn.Module):
     def forward(self, cond, update_sn: bool = False,
                 z: Optional[torch.Tensor] = None):
         if isinstance(cond, Rows):
-            if z is not None:
-                raise ValueError("row-sharded painting takes a no_z painter "
-                                 "(ROADMAP A.11b-3)")
-            return self.forward_rows(cond, update_sn)
+            return self.forward_rows(cond, update_sn, z)
         if z is None:
             if not hasattr(self, "fc"):
                 raise ValueError("a painter built with no_z=False needs z")
@@ -82,19 +79,29 @@ class PainterSpadeDecoder(nn.Module):
         y = self.final_spade(y, cond, update_sn)
         return torch.tanh(self.conv_img(lrelu(y)))
 
-    def forward_rows(self, cond: Rows, update_sn: bool = False) -> Rows:
-        """The forward of a ``no_z`` painter without the final shortcut on
-        a row-sharded ``cond``. Its first maps (H / 2^spade_n_up rows) may
-        give a shard no rows."""
-        if not hasattr(self, "fc") or hasattr(self, "final_shortcut_conv"):
-            raise ValueError("row-sharded painting takes a no_z painter "
-                             "without the final shortcut (ROADMAP A.11b-3)")
-        zh = cond.h // 2 ** self.spade_n_up
-        zw = cond.w // 2 ** self.spade_n_up
-        z = spatial.conv2d(spatial.resize(cond, (zh, zw), "nearest"), self.fc)
+    def forward_rows(self, cond: Rows, update_sn: bool = False,
+                     z=None) -> Rows:
+        """The forward on a row-sharded ``cond``; ``z`` (a painter with z)
+        a tensor for the whole batch, split by the partition rule, or its
+        ``Rows``. The first maps (H / 2^spade_n_up rows) may give a shard
+        no rows. The final shortcut's conditioning is computed on the
+        rows: a 1x1 conv and the batch norm (over every shard in train
+        mode)."""
+        if z is None:
+            if not hasattr(self, "fc"):
+                raise ValueError("a painter built with no_z=False needs z")
+            zh = cond.h // 2 ** self.spade_n_up
+            zw = cond.w // 2 ** self.spade_n_up
+            z = spatial.conv2d(spatial.resize(cond, (zh, zw), "nearest"),
+                               self.fc)
+        elif not isinstance(z, Rows):
+            z = spatial.split_rows(z, cond.devices)
         y = self.head_0.forward_rows(z, cond, update_sn)
         for block in (self.G_middle_0, self.G_middle_1, *self.up_spades):
             y = block.forward_rows(spatial.upsample_nearest(y), cond,
                                    update_sn)
+        if hasattr(self, "final_shortcut_conv"):
+            cond = self.final_shortcut_bn.forward_rows(spatial.conv2d(
+                y, self.final_shortcut_conv, update_sn=update_sn)).map(lrelu)
         y = self.final_spade.forward_rows(y, cond, update_sn)
         return spatial.conv2d(y.map(lrelu), self.conv_img).map(torch.tanh)

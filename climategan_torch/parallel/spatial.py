@@ -379,8 +379,8 @@ def _out_dtype(dtype: torch.dtype, device: torch.device) -> torch.dtype:
 
 def conv2d(r: Rows, conv: nn.Module, pad: int = 0,
            mode: str = "zero", update_sn: bool = False) -> Rows:
-    """``conv`` (an ``nn.Conv2d`` or an ``SNConv``) on the sharded map.
-    ``pad``/``mode``: a pad of the input before the conv on all four
+    """``conv`` (an ``nn.Conv2d``, grouped or not, or an ``SNConv``) on the
+    sharded map. ``pad``/``mode``: a pad of the input before the conv on all four
     sides (``Conv2dBlock``'s), with the conv's own padding 0; else the
     conv's zero padding. In eval mode each shard runs the conv's replica
     on its device; in train mode the conv's own weights, read once for
@@ -420,7 +420,8 @@ def conv2d(r: Rows, conv: nn.Module, pad: int = 0,
             win = F.pad(win, (p, p, 0, 0), mode=mode)
         with whole_map(*whole):
             y = F.conv2d(win, w, bias if scale is None else None, s,
-                         (0, p) if mode == "zero" else 0, d)
+                         (0, p) if mode == "zero" else 0, d,
+                         getattr(conv, "groups", 1))
         if scale is not None:
             y = y * scale.to(dev).to(y.dtype)
             if bias is not None:
@@ -429,11 +430,24 @@ def conv2d(r: Rows, conv: nn.Module, pad: int = 0,
     return Rows(parts)
 
 
-def max_pool2d(r: Rows, kernel: int, stride: int, padding: int) -> Rows:
-    """``F.max_pool2d(x, kernel, stride, padding)``; rows beyond the image
-    are -inf, as the pool's own padding."""
-    h_out = out_rows(r.h, kernel, stride, padding, 1)
-    w_out = out_rows(r.parts[0].shape[3], kernel, stride, padding, 1)
+def pool_rows(h: int, kernel: int, stride: int, padding: int,
+              ceil_mode: bool = False) -> int:
+    """The rows of a max pool's output on a map of h rows, by PyTorch's
+    rule: with ``ceil_mode`` a last window that starts inside the image
+    (or its top padding) counts even where it runs past the bottom."""
+    if not ceil_mode:
+        return out_rows(h, kernel, stride, padding, 1)
+    n = -(-(h + 2 * padding - kernel) // stride) + 1
+    return n - 1 if (n - 1) * stride >= h + padding else n
+
+
+def max_pool2d(r: Rows, kernel: int, stride: int, padding: int,
+               ceil_mode: bool = False) -> Rows:
+    """``F.max_pool2d(x, kernel, stride, padding, ceil_mode=ceil_mode)``;
+    rows beyond the image are -inf, as the pool's own padding and a ceil
+    window's overhang."""
+    h_out = pool_rows(r.h, kernel, stride, padding, ceil_mode)
+    w_out = pool_rows(r.w, kernel, stride, padding, ceil_mode)
     parts = []
     for (a, b), dev in zip(split(h_out, r.k), r.devices):
         if a == b:
@@ -441,7 +455,8 @@ def max_pool2d(r: Rows, kernel: int, stride: int, padding: int) -> Rows:
             continue
         win = window(r, a * stride - padding,
                      (b - 1) * stride - padding + kernel, dev, "-inf")
-        parts.append(F.max_pool2d(win, kernel, stride, (0, padding)))
+        parts.append(F.max_pool2d(win, kernel, stride, (0, padding),
+                                  ceil_mode=ceil_mode))
     return Rows(parts)
 
 
@@ -601,6 +616,17 @@ def total(values: Sequence[Optional[torch.Tensor]], devices: Sequence
     """The sum of the shards' partials (None for a shard with nothing to
     give) on the first device, with its gradient to each."""
     return all_reduce(values, "sum", devices[:1])[0]
+
+
+def mean(r: Rows) -> torch.Tensor:
+    """The per-(N, C) mean over the whole map, (N, C, 1, 1) on the first
+    shard's device in the map's dtype: the shards' sums (in f32, float64
+    for float64) added, then divided by h * w, with the gradient to every
+    shard."""
+    st = torch.promote_types(r.dtype, torch.float32)
+    sums = [p.sum((2, 3), keepdim=True, dtype=st) if p.shape[2] else None
+            for p in r.parts]
+    return (total(sums, r.devices) / (r.h * r.w)).to(r.dtype)
 
 
 def instance_norm(r: Rows, eps: float = 1e-5) -> Rows:

@@ -94,8 +94,12 @@ option runs on rows: the local painter D and pl4m's frozen painter on the
 shards, the gradient penalty's norms summed over them, the diff-aug
 translation's rows fetched from the neighbours, the VGG on rows, and remat
 of per-domain functions that take ``Rows`` (its ``small_convs`` policy by
-the whole map's area). Another generator configuration raises
-(``check_row_sharded_step``).
+the whole map's area). Every generator configuration runs on rows: the
+SPADE masker's conditioning is built on the shards (the depth's min-max
+over every shard), a painter's z is drawn for the (global) batch as above
+and split by rows, depth classification's bucket targets are split as the
+maps, and DeepLab v2's dropout masks are drawn for the whole map and
+sliced by rows (``deeplab_v2.dropout``).
 """
 from __future__ import annotations
 
@@ -121,7 +125,6 @@ from climategan_torch.models.generator import OmniGenerator, create_generator
 from climategan_torch.ops.diff_aug import DiffTransforms
 from climategan_torch.ops.interpolate import resize
 from climategan_torch.optim import build_lr_scales, clamp_params, make_optimizer
-from climategan_torch.models.generator import GenConfig, check_rows
 from climategan_torch.parallel import distributed, spatial
 from climategan_torch.parallel.spatial import Rows, each
 
@@ -326,13 +329,18 @@ def buffers_as(buffers: List[torch.Tensor],
 
 
 def remat_contexts(buffers: List[torch.Tensor],
-                   policy: Optional[Callable[..., bool]]):
+                   policy: Optional[Callable[..., bool]],
+                   devices: Tuple[torch.device, ...] = ()):
     """``context_fn`` of one ``checkpoint`` call: the forward runs as it
     is (under the selective policy's caching mode, where there is one);
     the recompute runs with ``buffers`` holding what they held when the
     forward started, and they get back what they held before the
-    recompute."""
+    recompute; so do the random generators of the CUDA ``devices``
+    (DeepLab v2's dropout draws the same masks again), which
+    ``checkpoint`` restores only for the devices of the tensors it finds
+    in its arguments, not of row-sharded maps."""
     start = snapshot(buffers)
+    states = [torch.cuda.get_rng_state(d) for d in devices]
     if policy is None:
         fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
     else:
@@ -344,10 +352,36 @@ def remat_contexts(buffers: List[torch.Tensor],
 
     @contextlib.contextmanager
     def recompute():
-        with buffers_as(buffers, start), rec:
+        with buffers_as(buffers, start), torch.random.fork_rng(
+                devices=list(devices), enabled=bool(devices)), rec:
+            for d, state in zip(devices, states):
+                torch.cuda.set_rng_state(state, d)
             yield
 
     return fwd, recompute()
+
+
+def cuda_devices(*args) -> Tuple[torch.device, ...]:
+    """The CUDA devices of the tensors and row-sharded maps in ``args``
+    (dicts, lists and tuples searched)."""
+    found = {}
+
+    def visit(a):
+        if isinstance(a, Rows):
+            for p in a.parts:
+                visit(p)
+        elif isinstance(a, torch.Tensor) and a.device.type == "cuda":
+            found[a.device] = None
+        elif isinstance(a, dict):
+            for v in a.values():
+                visit(v)
+        elif isinstance(a, (list, tuple)):
+            for v in a:
+                visit(v)
+
+    for a in args:
+        visit(a)
+    return tuple(found)
 
 
 def _detach(t):
@@ -359,14 +393,6 @@ def shard_rows(batch: Batch, devices) -> Batch:
     (``spatial.split_rows``)."""
     return {dom: {key: spatial.split_rows(t, devices) for key, t in d.items()}
             for dom, d in batch.items()}
-
-
-def check_row_sharded_step(opts) -> None:
-    """Raises ``check_rows``'s error for a generator configuration without
-    row-sharded forwards (ROADMAP A.11b-3); every step option runs on
-    rows."""
-    check_rows(GenConfig.from_opts(opts),
-               "row-sharded training (tpu.spatial_shards > 1)")
 
 
 def split_micro(batch: Batch, k: int) -> List[Batch]:
@@ -559,7 +585,8 @@ class StepBuilder:
                           use_reentrant=False,
                           context_fn=functools.partial(
                               remat_contexts, state_buffers(G, D),
-                              self.remat_policy))
+                              self.remat_policy,
+                              cuda_devices(args[2:], kwargs)))
 
     def _accumulate(self, micro: List[Batch], loss_fn, params,
                     buffers: List[torch.Tensor]):
@@ -637,7 +664,7 @@ class StepBuilder:
                 if cfg.m_use_spade and d_pred is not None and s_pred is not None:
                     d_c, s_c = d_pred, s_pred
                     if for_ == "D":
-                        d_c, s_c = d_c.detach(), s_c.detach()
+                        d_c, s_c = _detach(d_c), _detach(s_c)
                     cond = G.make_m_cond(d_c, s_c, x)
                 logits = G.mask(z, z_depth, sigmoid=False, update_sn=update_sn,
                                 cond=cond)
@@ -650,10 +677,10 @@ class StepBuilder:
                 and cfg.lam_d_main != 0):
             pred = L.upcast(d_pred)
             if cfg.d_classify:
-                target = batch["d"]
-                if target.ndim == 4:  # (N, 1, H, W) bucket indices
-                    target = target[:, 0]
-                dl = L.cross_entropy(pred, target.long())
+                # (N, 1, H, W) or (N, H, W) bucket indices
+                target = each(lambda t: (t[:, 0] if t.ndim == 4 else t)
+                              .long(), batch["d"])
+                dl = L.cross_entropy(pred, target)
             elif cfg.d_loss == "dada":
                 dl = L.dada_depth_loss(pred, L.upcast(batch["d"]))
             else:
@@ -881,10 +908,9 @@ class StepBuilder:
     # ------------------------------------------------------------------
     def _rows(self, micro: List[Batch], devices) -> List[Batch]:
         """The micro-batches, each split by rows over ``devices`` where
-        there are several (the configuration checked first)."""
+        there are several."""
         if devices is None or len(devices) < 2:
             return micro
-        check_row_sharded_step(self.opts)
         return [shard_rows(mb, devices) for mb in micro]
 
     @distributed.sharded_batch()

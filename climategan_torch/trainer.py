@@ -18,9 +18,8 @@ forward or a kernel: the evaluation and its panels run ``spade_cond`` and
 logger (comet, the PNG writer) is skipped when absent. With
 ``train.fid.enable`` the evaluation also logs the painter's FID
 (``compute_val_fid``). Options that are not ported raise a ``ValueError``
-at ``setup`` naming their ROADMAP item: under row shards a generator
-configuration other than the default (``check_row_sharded_step``,
-A.11b-3); an orbax run dir raises where it would be loaded (A.11d).
+at ``setup`` naming their ROADMAP item: an orbax run dir raises where it
+would be loaded (A.11d).
 
 Data parallel (one process per rank, ``python -m torch.distributed.run``):
 the data axis is the process group (``tpu.mesh.data`` is -1 or its size,
@@ -38,7 +37,8 @@ by the JAX trainer's rule (``mesh.spatial_devices``: rank r of a node owns
 cards [r k, (r + 1) k), so ``torch.distributed.run --nproc_per_node
 <cards / k>`` trains data x space; the CPU holds all k shards). Where k
 does not divide the rank's cards the trainer prints JAX's message and
-trains unsharded. Every step option runs sharded, and KITTI pretraining's
+trains unsharded. Every generator configuration and every step option
+runs sharded, and KITTI pretraining's
 epochs too (the kitti batch's rows split as any domain's). The models, the
 state and the checkpoint are one set on the first shard's device, so a
 sharded run resumes unsharded and the other way round; the evaluation, the
@@ -75,7 +75,7 @@ from climategan_torch.parallel.mesh import (
     spatial_devices,
     spatial_shards,
 )
-from climategan_torch.train_step import StepBuilder, check_row_sharded_step
+from climategan_torch.train_step import StepBuilder
 from climategan_torch.utils.checkpoint import (
     checkpoint_dict,
     load_partial_state,
@@ -90,12 +90,9 @@ BOTH = ("masker", "painter")
 
 
 def refuse_unported_trainer(opts) -> None:
-    """Raises for a generator configuration that row shards
-    (``tpu.spatial_shards`` > 1) do not take (``check_rows``'s
-    ``NotImplementedError`` naming ROADMAP A.11b-3), and a ``ValueError``
-    for a mesh that the process group cannot give (``check_data_axis``)."""
-    if spatial_shards(opts) > 1:
-        check_row_sharded_step(opts)
+    """Raises a ``ValueError`` for a mesh that the process group cannot
+    give (``check_data_axis``); row shards take every generator
+    configuration and step option."""
     check_data_axis(opts, distributed.world())
 
 

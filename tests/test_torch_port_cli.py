@@ -271,19 +271,22 @@ def test_bench_defaults_match_the_root_bench():
 
 @pytest.mark.parametrize("flags", (["--mesh"], ["--spatial"], ["--hybrid", "2"]))
 def test_bench_refuses_multi_gpu_flags(flags, capsys):
-    """``--mesh``, ``--spatial`` and ``--hybrid 2`` parse without a card,
-    for the whole forward only: another stage exits (row-sharded stages
-    naming ROADMAP A.11b-3)."""
+    """``--mesh``, ``--spatial`` and ``--hybrid 2`` parse without a card;
+    ``--mesh`` benches the whole forward only (another stage exits), the
+    row-sharded layouts take ``--stage masker`` and ``--stage painter``
+    too (tests/test_torch_port_spatial_configs.py runs them)."""
     args = port_bench.parse_args(flags)
     assert (args.mesh, args.spatial, args.hybrid) == (
         flags == ["--mesh"], flags == ["--spatial"],
         2 if flags == ["--hybrid", "2"] else 0)
-    with pytest.raises(SystemExit):
-        port_bench.parse_args(flags + ["--stage", "masker"])
-    err = capsys.readouterr().err
-    assert "--stage all" in err
-    if flags != ["--mesh"]:
-        assert "ROADMAP A.11b-3" in err
+    if flags == ["--mesh"]:
+        with pytest.raises(SystemExit):
+            port_bench.parse_args(flags + ["--stage", "masker"])
+        assert "--stage all" in capsys.readouterr().err
+        return
+    for stage in ("masker", "painter"):
+        args = port_bench.parse_args(flags + ["--stage", stage])
+        assert args.stage == stage and (args.spatial or args.hybrid == 2)
 
 
 def test_bench_flop_count_holds_every_spade_cond_call(monkeypatch):

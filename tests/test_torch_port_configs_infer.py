@@ -1,6 +1,7 @@
 """The other generator configurations of the port end to end against the
 JAX package, f32 on the CPU at tiny_opts(32): ``build_infer_fn`` with all
-three events, the weights in and out, and the pretrained backbones.
+three events (and its 2-shard row-sharded ``build_spatial_infer_fn``), the
+weights in and out, and the pretrained backbones.
 
 The configurations are those of tests/test_torch_port_configs.py (A: the
 SPADE masker at cond_nc 15, the base depth decoder, the painter's final
@@ -31,7 +32,7 @@ from climategan_tpu.inference import build_infer_fn as jax_build_infer_fn
 from climategan_tpu.ops.image import unit_range_to_uint8 as jax_to_uint8
 from climategan_tpu.utils import convert as jconvert
 from climategan_tpu.utils.bn_fold import bake_spectral_norm
-from climategan_torch.inference import build_infer_fn
+from climategan_torch.inference import build_infer_fn, build_spatial_infer_fn
 from climategan_torch.models.generator import GenConfig, OmniGenerator
 from climategan_torch.utils.convert import (
     maybe_load_pretrained_backbone,
@@ -75,29 +76,45 @@ def infer_run(name):
     if name == "B":
         z = nchw(G.apply(V, rng_paint, 2, SIZE, SIZE,
                          method="sample_painter_z"))
-    _, infer = build_infer_fn(
-        topts, dtype=torch.float32, cloudy=cloudy, device="cpu",
-        state_dict=state_dict_from_jax(V, GenConfig.from_opts(topts)))
+    kw = dict(dtype=torch.float32, cloudy=cloudy,
+              state_dict=state_dict_from_jax(V, GenConfig.from_opts(topts)))
     uniform = torch.from_numpy(np.array(jax.random.uniform(rng_cloud, (9, 9))))
     g_value = float(jax.random.randint(rng_fire, (), 100, 151))
-    got = {k: v.numpy() for k, v in infer(torch.from_numpy(x),
-                                          uniform=uniform, g_value=g_value,
-                                          z=z).items()}
-    return {"want": want, "got": got}
+    run = {"want": want}
+    for key, (_, infer) in (
+            ("got", build_infer_fn(topts, device="cpu", **kw)),
+            ("spatial", build_spatial_infer_fn(topts, ["cpu"] * 2, **kw))):
+        run[key] = {k: v.numpy() for k, v in infer(
+            torch.from_numpy(x), uniform=uniform, g_value=g_value,
+            z=z).items()}
+    return run
 
 
 @pytest.mark.parametrize("output", ("mask",) + EVENTS)
 @pytest.mark.parametrize("name", ["A", "B", "C"])
 def test_infer_matches_jax(name, output):
-    run = infer_run(name)
-    want, got = run["want"][output], run["got"][output]
+    _hold_to_jax(infer_run(name), "got", name, output)
+
+
+@pytest.mark.parametrize("output", ("mask",) + EVENTS)
+@pytest.mark.parametrize("name", ["A", "B", "C"])
+def test_spatial_infer_matches_jax(name, output):
+    """The 2-shard build_spatial_infer_fn (each image's rows over ["cpu"] *
+    2) against the JAX package's build_infer_fn on the same weights, input
+    and draws, at the same bars: the slice-wide hold of row sharding in
+    every configuration."""
+    _hold_to_jax(infer_run(name), "spatial", name, output)
+
+
+def _hold_to_jax(run, key, name, output):
+    want, got = run["want"][output], run[key][output]
     assert got.shape == want.shape and got.dtype == want.dtype
     if output == "mask":
-        print(f"{name} mask: max abs error {np.abs(got - want).max():.2e}")
+        print(f"{name} {key} mask: max abs error {np.abs(got - want).max():.2e}")
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
         return
     diff = np.abs(got.astype(int) - want.astype(int))
-    print(f"{name} {output}: max {diff.max()} LSB, "
+    print(f"{name} {key} {output}: max {diff.max()} LSB, "
           f"{100 * np.mean(diff > 0):.4f}% of values differ")
     assert diff.max() <= 1, diff.max()
 

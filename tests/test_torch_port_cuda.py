@@ -838,12 +838,26 @@ def test_spade_cond_kernel_on_halo_windows(H):
     tensor-core kernel's own on the whole map (each output sums the same
     taps in the same order wherever its tile starts). The bf16 kernel's
     error against the f32 plain version on the whole map is printed."""
+    _halo_windows(H, cnc=3, ncs=(40, 40))
+
+
+@pytest.mark.parametrize("cnc", [15, 12])
+@pytest.mark.parametrize("H", [5, 13, 40, 81])
+def test_spade_cond_kernel_on_wide_halo_windows(H, cnc):
+    """The same on the SPADE mask decoder's conditioning (cond_nc 15 or
+    12: the bf16 kernel's 16-channel window pixel) at its widths (a dual
+    call of two 128-wide hidden maps): the windows of 1-row shards and of
+    fewer rows than the halo included."""
+    _halo_windows(H, cnc=cnc, ncs=(128, 128))
+
+
+def _halo_windows(H, cnc, ncs):
     from climategan_torch.kernels.spade_cond import pack_spade_cond
     from climategan_torch.parallel.spatial import split
 
     dev = _device()
-    seg, k1, b1, branches = _to(_spade_args(N=2, H=H, W=40, cnc=3,
-                                            hids=(128, 128), ncs=(40, 40)),
+    seg, k1, b1, branches = _to(_spade_args(N=2, H=H, W=40, cnc=cnc,
+                                            hids=(128, 128), ncs=ncs),
                                 dev, torch.float32)
     whole = spade_cond_plain(seg, k1, b1, branches)
     packs = {dt: pack_spade_cond(*_to((seg, k1, b1, branches), dev, dt)[1:])
@@ -1019,3 +1033,53 @@ def test_discriminator_pool_gradient_of_a_channels_last_input(sharded):
             y = y.gather(dev)
         grads.append(torch.autograd.grad((y * up).sum(), t)[0])
     assert (grads[0] - grads[1]).abs().max().item() <= 1e-12
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_deeplab_v2_dropout_under_remat_on_the_card(shards):
+    """DeepLab v2's g_step (tiny, float64) with tpu.remat under the
+    ``small_convs`` policy against the same step without remat, unsharded
+    and over ["cuda:0"] * 2, from one dropout seed: the recompute draws
+    the forward's masks again (``train_step.remat_contexts`` restores the
+    shards' CUDA generators, which ``checkpoint`` does not see in a
+    row-sharded batch), so the losses agree within 1e-12 relative and G
+    is held by ``hold_state``."""
+    import copy
+
+    from climategan_torch import bench_train
+    from climategan_torch.train_step import StepBuilder
+    from climategan_torch.utils.opts import load_opts
+    from climategan_torch.utils.step_check import (
+        TINY_OVERRIDES,
+        TINY_SIZE,
+        first_moments,
+        hold_state,
+    )
+
+    dev = _device()
+    overrides = ["gen.encoder.architecture=deeplabv2",
+                 "gen.s.architecture=deeplabv2"]
+    batch = {d: {k: v.double() if v.is_floating_point() else v
+                 for k, v in b.items()}
+             for d, b in bench_train.synthetic_batch(
+                 2, TINY_SIZE, 32, dev).items()}
+    devices = None if shards == 1 else ["cuda:0"] * shards
+    first, runs = None, []
+    for remat in ([], ["tpu.remat=true", "tpu.remat_policy=small_convs"]):
+        builder = StepBuilder(load_opts(path=TINY_OVERRIDES,
+                                        commandline_opts=overrides + remat))
+        if first is None:
+            first = builder.init_state(0, dev)
+            first.G, first.D = first.G.double(), first.D.double()
+        state = builder.state_for(copy.deepcopy(first.G),
+                                  copy.deepcopy(first.D))
+        torch.manual_seed(3)
+        state, metrics = builder.g_step(state, batch, draws=(0.05, False),
+                                        devices=devices)
+        runs.append((state, metrics, first_moments(state.G, state.g_opt)))
+    (want, want_m, want_mu), (got, got_m, got_mu) = runs
+    for k, v in want_m.items():
+        assert abs(float(got_m[k]) - float(v)) <= \
+            1e-12 * abs(float(v)) + 1e-15, k
+    print(hold_state(got.G, want.G.state_dict(), builder.g_lr, got_mu,
+                     want_mu, what=f"remat, {shards} shard(s)"))

@@ -12,7 +12,9 @@ row-sharded ``infer`` to the JAX package's).
 - the sharded forwards of the encoder, the depth, seg and mask heads and
   the painter against ``forward`` at tiny sizes, and ``spade_cond`` on a
   window with a 2-row halo, cropped;
-- the hybrid grid, one-shard calls (today's path), the refusals.
+- the hybrid grid, one-shard calls (today's path), and each part's
+  forward_rows in five other generator configurations (each configuration
+  end to end: tests/test_torch_port_spatial_configs.py).
 
 Bars: the JAX package's 1 uint8 LSB for the events (on >= 99.9% of
 values) and 1e-5 for the mask; below that, float32, set from its rounding
@@ -35,11 +37,7 @@ from climategan_torch.inference import (
     build_spatial_infer_fn,
 )
 from climategan_torch.kernels.spade_cond import spade_cond_plain
-from climategan_torch.models.generator import (
-    GenConfig,
-    check_rows,
-    create_generator,
-)
+from climategan_torch.models.generator import create_generator
 from climategan_torch.models.norms import instance_norm
 from climategan_torch.ops.blur import gaussian_blur
 from climategan_torch.ops.image import normalize
@@ -392,8 +390,45 @@ def test_one_shard_is_the_plain_forward():
 ], ids=["spade_masker", "mobilenet", "deeplabv2", "depth_classification",
         "painter_with_z"])
 def test_other_configurations_are_refused(override):
+    """No configuration is refused row sharding: in each of these five
+    (once refused, ROADMAP A.11b-3) every part's row-sharded forward over
+    3 and 4 shards (the encoder's 8-row maps 2/3/3 and 2 a shard, the
+    painter's 2-row head leaving shards empty) equals its forward, each
+    fed the unsharded part's inputs: encode, depth, segmentation, the
+    SPADE masker's conditioning, mask, depth_map and paint (with z, the
+    same draw)."""
     opts = port_tiny_opts(64, **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11b-3"):
-        check_rows(GenConfig.from_opts(opts))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11b-3"):
-        build_spatial_infer_fn(opts, CPUS[2], dtype=torch.float32)
+    G = create_generator(opts, seed=3).eval()
+    x = _rand(2, 3, 64, 64, seed=4, dtype=torch.float32)
+    zp = G.sample_painter_z(2, 64, 64,
+                            generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        z = G.encode(x)
+        d, zd = G.depth(z)
+        s = G.segmentation(z, zd)
+        cond = G.make_m_cond(d, s, x) if G.cfg.m_use_spade else None
+        m = G.mask(z, zd, cond=cond)
+        mb = (m > 0.5).float()
+        want = {"z": z, "d": d, "zd": zd, "s": s, "cond": cond, "m": m,
+                "depth_map": G.depth_map(d), "paint": G.paint(mb, x, z=zp)}
+        for k in (3, 4):
+            def rows(t):
+                if isinstance(t, (list, tuple)):
+                    return tuple(rows(a) for a in t)
+                return None if t is None else spatial.shard_rows(t, CPUS[k])
+
+            gd, gzd = G.depth(rows(z))
+            got = {"z": G.encode(rows(x)), "d": gd, "zd": gzd,
+                   "s": G.segmentation(rows(z), rows(zd)),
+                   "cond": (G.make_m_cond(rows(d), rows(s), rows(x))
+                            if cond is not None else None),
+                   "m": G.mask(rows(z), rows(zd), cond=rows(cond)),
+                   "depth_map": G.depth_map(rows(d)),
+                   "paint": G.paint(rows(mb), rows(x), z=zp)}
+            for key, w in want.items():
+                g = got[key]
+                if w is None:
+                    assert g is None, key
+                    continue
+                for a, b in (zip(g, w) if isinstance(w, tuple) else [(g, w)]):
+                    _close(a, b)

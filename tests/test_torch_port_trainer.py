@@ -439,19 +439,24 @@ def test_evaluation_logs_the_painters_fid(run, monkeypatch):
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"tpu": {"spatial_shards": 2}, "gen": {"p": {"no_z": False}}},
-     "ROADMAP A.11b"),
-    ({"tpu": {"mesh": {"data": 2}}}, "world size is 1"),
+    pytest.param({"tpu": {"spatial_shards": 2}, "gen": {"p": {"no_z": False}}},
+                 None, id="option0-ROADMAP A.11b"),
+    pytest.param({"tpu": {"mesh": {"data": 2}}}, "world size is 1",
+                 id="option1-world size is 1"),
 ])
 def test_unported_options_are_refused(data, tmp_path, option, item):
-    """Row-sharded training of a generator configuration without
-    row-sharded forwards (here a painter with z) names ROADMAP A.11b-3;
-    a data axis of 2 in one process (world size 1) says how to start the
-    ranks."""
+    """A data axis of 2 in one process (world size 1) says how to start
+    the ranks; row-sharded training of another generator configuration
+    (here a painter with z) is not refused: the trainer sets up on two
+    shards of the CPU."""
     from climategan_torch.utils.opts import merge
 
     _, topts = _opts(data, tmp_path)
     merge(option, topts)
+    if item is None:
+        trainer = Trainer(topts, device="cpu").setup()
+        assert trainer.shard_devices == [torch.device("cpu")] * 2
+        return
     with pytest.raises((ValueError, NotImplementedError), match=item):
         Trainer(topts, device="cpu").setup()
 
