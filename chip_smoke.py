@@ -91,7 +91,8 @@ Phases, any failure exits non-zero:
      samples per domain r, s, rf as 640x853 PNGs and 4 val ones at 640x640;
      s with Unity-coded depth and integer seg labels) in a temp dir; `python -m
      torch.distributed.run --standalone --nproc_per_node 1 -m
-     climategan_torch.train` (one NCCL rank) as a subprocess
+     climategan_torch.train` (one NCCL rank), started as phase 15.b says
+     through `python -m climategan_torch.launch`, in a subprocess
      at the default opts (full width) with data.loaders.batch_size=2 for 1
      epoch (4 steps, the evaluation, the checkpoint): 4 steps, spade_cond
      and masked_blend launched in the epoch (counted by the trainer per
@@ -281,6 +282,27 @@ Phases, any failure exits non-zero:
      99.9% of values, launches per batch {18 k, k, k, k, k}, and
      climategan_torch.bench --spatial --stage masker on the SPADE masker,
      its JSON line.
+  15. the tools (at most 40 s; each part's seconds on standard error): (a)
+     climategan_torch.profile_inference's run() in this process at 640^2
+     bf16 batch 2, --events all --iters 2: the stages sum to the
+     profiler's device total within 1% (every kernel linked to the range
+     around its launch), masker/encoder, seg_decoder, depth_decoder and
+     mask_decoder and a painter/* stage nonzero, every spade_cond kernel
+     in a painter/* stage, per iteration the main path's launches {18, 1,
+     1, 1, 1}; then --train at 256^2 batch 1 for one iteration, its stages
+     summing to its total within 1%; (b) phase 8.1's trainer run was
+     started by `python -m climategan_torch.launch -e <yaml>
+     --nproc_per_node 1 --submit bash` with 8.1's arguments as the YAML's
+     base_overrides: one script written, its command the one 8.1 ran
+     (torch.distributed.run, one rank, the same overrides), one trainer run;
+     (c) climategan_torch.compare_maskers on the card over phase 8's run
+     dir and a dir whose latest_ckpt.pth links phase 8's epoch-0 file, on
+     phase 8's 4 val photos with their masks as labels: 4 panels of 640 x
+     3 * 640, metrics.json with both models, run on cuda; (d) the f32
+     default generator of phase 4 (its CPU copy, moved to the card) with
+     seeded batch-norm statistics:
+     fold_generator_bns's forward (depth, seg, mask) within 1e-5 of the
+     unfolded forward on the card.
 Work that does not wait for other work runs beside it, the script's
 limit being 1,200 s: phase 9 runs in this process while phase 8's first
 trainer run trains in its own (the trainer's seconds and phase 9's are
@@ -306,6 +328,7 @@ configuration), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -938,6 +961,7 @@ TRAIN_SAMPLES, VAL_SAMPLES = 8, 4
 PHOTO_HW = (SIZE, SIZE * 4 // 3)
 VAL_HW = (SIZE, SIZE)
 TRAIN_BATCH, BIG_BATCH = 2, 6
+EPOCH0_RUN = "run_epoch0"  # phase 8's epoch-0 checkpoint as a run dir
 TRAINER_TIMEOUT = 900
 
 
@@ -992,25 +1016,54 @@ TORCHRUN = ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
             "1"]
 
 
-def train_cli(args, launcher=()) -> tuple:
-    """`python [launcher] -m climategan_torch.train` in a subprocess on the
-    card: its train.jsonl records and a line of its exit code, seconds and
-    output's tail (for the caller to log: it may run in a thread)."""
+def launch_cli(args, root: Path) -> tuple:
+    """`python -m climategan_torch.train` as one NCCL rank (TORCHRUN) in a
+    subprocess on the card, started by `python -m climategan_torch.launch
+    -e <yaml> --nproc_per_node 1 --submit bash` with ``args`` as the
+    YAML's base_overrides (phase 15.b): the one script it writes must hold
+    exactly that command. Returns the trainer's train.jsonl records and a
+    line of the exit code, seconds and output's tail (for the caller to
+    log: it may run in a thread)."""
+    import shlex
+
+    import yaml
+
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, *launcher, "-m",
-                          "climategan_torch.train", *args], cwd=ROOT,
-                         capture_output=True, text=True,
+    experiment = root / "experiment.yaml"
+    experiment.write_text(yaml.safe_dump(
+        {"runs": 1, "base_overrides": dict(a.split("=", 1) for a in args)},
+        sort_keys=False))
+    scripts = root / "launch_scripts"
+    out = subprocess.run([sys.executable, "-m", "climategan_torch.launch",
+                          "-e", str(experiment), "--nproc_per_node", "1",
+                          "--submit", "bash", "--scripts_dir", str(scripts)],
+                         cwd=ROOT, capture_output=True, text=True,
                          timeout=TRAINER_TIMEOUT)
     tail = "\n".join(out.stdout.splitlines()[-12:])
-    line = (f"python {' '.join(launcher)} -m climategan_torch.train (rc "
-            f"{out.returncode}, {time.perf_counter() - t0:.1f} s):\n{tail}")
+    line = (f"python -m climategan_torch.launch --nproc_per_node 1 --submit "
+            f"bash (rc {out.returncode}, {time.perf_counter() - t0:.1f} s):"
+            f"\n{tail}")
     if out.returncode != 0:
-        raise AssertionError(f"{line}\nthe trainer failed:\n"
+        raise AssertionError(f"{line}\nthe launched trainer failed:\n"
                              f"{out.stderr[-4000:]}")
+    written = sorted(scripts.glob("*.sh"))
+    want = [sys.executable, *TORCHRUN, "-m", "climategan_torch.train", *args]
+    got = shlex.split(written[0].read_text().splitlines()[-1]) if written \
+        else None
+    if len(written) != 1 or got != want:
+        raise AssertionError(f"the launcher wrote {written}: {got}, not "
+                             f"{want}")
     run_dir = Path(next(a.split("=", 1)[1] for a in args
                         if a.startswith("output_path=")))
-    return [json.loads(rec) for rec in
-            (run_dir / "train.jsonl").read_text().splitlines()], line
+    records = [json.loads(rec) for rec in
+               (run_dir / "train.jsonl").read_text().splitlines()]
+    epochs = [r for r in records if "steps" in r]
+    if len(epochs) != 1:
+        raise AssertionError(f"the launch trained {len(epochs)} epochs, not "
+                             f"one run of one: {epochs}")
+    return records, line + f"\n15.b: the launcher wrote one script, " \
+        f"{written[0].name}, whose command is 8.1's: {' '.join(got[1:7])} " \
+        f"... ({len(args)} overrides)"
 
 
 def train_in_process(args) -> tuple:
@@ -1081,8 +1134,8 @@ def trainer_phase(torch, dev, beside=None) -> tuple:
     # its process runs beside ``beside`` (phase 9), which this process runs
     # meanwhile: the trainer's seconds are information only
     first_run = _in_thread("the trainer's first run, beside phase 9",
-                           lambda: train_cli(args + ["train.epochs=1"],
-                                             TORCHRUN))
+                           lambda: launch_cli(args + ["train.epochs=1"],
+                                              root))
     beside_result = beside() if beside is not None else None
     records, line = first_run()
     log(line)
@@ -1171,6 +1224,11 @@ def trainer_phase(torch, dev, beside=None) -> tuple:
         f"steps, launches {second['launches']}, evaluation "
         f"{second['eval_s']:.2f} s, save {second['save_s']:.2f} s")
     del latest
+    # the epoch-0 file as the checkpoint of a second run dir (phase 15.c)
+    kept = root / EPOCH0_RUN
+    (kept / "checkpoints").mkdir(parents=True)
+    os.link(saved, kept / "checkpoints" / "latest_ckpt.pth")
+    (kept / "opts.json").write_text((run / "opts.json").read_text())
     saved.unlink()
 
     # ---- 8.3 serve the run dir -----------------------------------------
@@ -2322,18 +2380,22 @@ def parallel_phase(torch, dev, run_dir: Path) -> dict:
     # row shards of cuda:0) and 11.c at full width in f32: in bf16 a mean
     # of near-cancelling D outputs (s_advent_D_r, about 0.015 from outputs
     # of about 1) moves by 4.5% of itself between a forward of one row and
-    # of two (H100 80GB HBM3, 700 W). Both launches start first and run
-    # beside each other and beside this process's own work below, 11.d's
-    # serving checks and 11.a (one launch of both took 66-80 s alone); what
-    # the ranks time is information only
+    # of two (H100 80GB HBM3, 700 W). Both launches run beside each other
+    # and beside this process's own work below, 11.d's serving checks and
+    # 11.a (one launch of both took 66-80 s alone); what the ranks time is
+    # information only. 11.c's ranks start once this process's f32
+    # reference steps are done and their memory is released: with those
+    # steps beside them the card ran out of its 80 GB in two of four runs
+    # (the ranks' f32 steps failed to allocate; H100 80GB HBM3)
     tiny, plain_jobs = tiny_payload()
     full32 = dict(full, config={"train": {"bf16": False}},
                   deterministic=False)
     gloo_tiny = _start_ranks(torch, 2, tiny, ["cuda:0", "cuda:0"], "gloo")
-    gloo_full = _start_ranks(torch, 2, full32, ["cuda:0", "cuda:0"], "gloo")
-    ref = tiny_reference(torch, dev, tiny, plain_jobs)
     want_metrics = [p["metrics"] for p in
                     _plain_steps(torch, dev, full32, full32["jobs"])]
+    torch.cuda.empty_cache()
+    gloo_full = _start_ranks(torch, 2, full32, ["cuda:0", "cuda:0"], "gloo")
+    ref = tiny_reference(torch, dev, tiny, plain_jobs)
     _serve_checks(torch, run_dir)
 
     # ---- 11.a NCCL at world size 1, full width ---------------------------
@@ -3592,6 +3654,152 @@ def _start_side(torch):
     return _in_thread("the side process on cuda:0", call)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the profiler, the launcher (in phase 8.1), compare_maskers and
+# the batch-norm fold
+PROFILE_ITERS = 2
+TRAIN_PROFILE_SIZE = 256
+STAGE_SUM_BAR = 0.01  # the stages' sum against the profiler's device total
+MASKER_STAGES = ("masker/encoder", "masker/seg_decoder",
+                 "masker/depth_decoder", "masker/mask_decoder")
+FOLD_BAR = 1e-5  # the folded f32 forward against the unfolded, relative
+
+
+def check_profile(res, what) -> None:
+    """The stages sum to the profiler's device total within STAGE_SUM_BAR
+    and the masker's four stages and a painter stage are nonzero."""
+    total, attributed = res["total_ms"], res["attributed_ms"]
+    if not abs(attributed - total) <= STAGE_SUM_BAR * total:
+        raise AssertionError(f"{what}: the stages sum to {attributed} ms of "
+                             f"the device's {total} ms: {res['stages_ms']}")
+    stages = res["stages_ms"]
+    zero = [st for st in MASKER_STAGES if not stages.get(st, 0.0) > 0]
+    if zero or not any(v > 0 for k, v in stages.items()
+                       if k.startswith("painter/")):
+        raise AssertionError(f"{what}: stages {zero} or every painter "
+                             f"stage without device time: {stages}")
+    log(f"{what}: {total:.3f} ms of device time per iteration, the stages "
+        f"sum to {attributed:.3f} ms; " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(stages.items(),
+                                              key=lambda kv: -kv[1])))
+
+
+def profiler_checks(torch, out: Path) -> None:
+    """15.a (see the module docstring)."""
+    from climategan_torch import profile_inference as prof
+
+    t0 = time.perf_counter()
+    res = prof.run(prof.parse_args([
+        "--batch", str(BATCH), "--size", str(SIZE), "--events", "all",
+        "--iters", str(PROFILE_ITERS), "--top", "10", "--out",
+        str(out / "infer")]))
+    check_profile(res, f"15.a profile_inference {SIZE}^2 bf16 batch {BATCH}")
+    spade = [stage for name, stage, _ in res["rows"] if "spade_cond" in name]
+    if len(spade) != MAIN_PATH_LAUNCHES["spade_cond"] * PROFILE_ITERS or \
+            not all(st.startswith("painter/") for st in spade):
+        raise AssertionError(f"15.a spade_cond kernels in the trace: "
+                             f"{collections.Counter(spade)}")
+    if res["launches"] != MAIN_PATH_LAUNCHES:
+        raise AssertionError(f"15.a launches per iteration {res['launches']}")
+    log(f"15.a every spade_cond kernel of the trace ({len(spade)}) in a "
+        f"painter stage; launches per iteration {res['launches']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res = prof.run(prof.parse_args([
+        "--train", "--batch", "1", "--size", str(TRAIN_PROFILE_SIZE),
+        "--iters", "1", "--top", "10", "--out", str(out / "train")]))
+    check_profile(res, f"15.a profile_inference --train "
+                       f"{TRAIN_PROFILE_SIZE}^2 batch 1")
+    log(f"15.a --train: {time.perf_counter() - t0:.1f} s")
+
+
+def compare_checks(torch, root: Path, lists) -> None:
+    """15.c (see the module docstring)."""
+    import os
+
+    import cv2
+    import numpy as np
+
+    from climategan_torch import compare_maskers
+
+    t0 = time.perf_counter()
+    work = root / "compare"
+    (work / "imgs").mkdir(parents=True)
+    (work / "labels").mkdir()
+    samples = json.loads(Path(lists["val"]["r"]).read_text())
+    for e in samples:  # the masks as must (1) / cannot (0) labels
+        name = Path(e["x"]).name
+        os.symlink(e["x"], work / "imgs" / name)
+        cv2.imwrite(str(work / "labels" / name),
+                    (cv2.imread(e["m"], cv2.IMREAD_GRAYSCALE) > 127
+                     ).astype(np.uint8))
+    runs = [root / "run", root / EPOCH0_RUN]
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = compare_maskers.compare(compare_maskers.parse_args(
+            ["-i", str(work / "imgs"), "-r", *map(str, runs), "-l",
+             str(work / "labels"), "-o", str(work / "out")]))
+    panels = [cv2.imread(str(p)) for p in res["panels"]]
+    shapes = {None if p is None else p.shape for p in panels}
+    want = (SIZE, SIZE * (1 + len(runs)), 3)
+    metrics = json.loads((work / "out" / "metrics.json").read_text())
+    if len(panels) != len(samples) or shapes != {want}:
+        raise AssertionError(f"15.c panels: {len(panels)} of shapes {shapes}")
+    if sorted(metrics) != sorted(r.name for r in runs) or not all(
+            np.isfinite(v) for m in metrics.values() for v in m.values()):
+        raise AssertionError(f"15.c metrics.json: {metrics}")
+    if res["device"] != "cuda":
+        raise AssertionError(f"15.c ran on {res['device']}")
+    log(f"15.c compare_maskers on {res['device']}: {len(panels)} panels "
+        f"{want}, metrics " + "; ".join(
+            f"{k}: " + ", ".join(f"{n} {v:.4f}" for n, v in m.items())
+            for k, m in metrics.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+
+
+def fold_checks(torch, G32) -> None:
+    """15.d (see the module docstring)."""
+    import copy
+
+    from climategan_torch.models.norms import BatchNorm2d
+    from climategan_torch.utils.bn_fold import fold_generator_bns, folded_blocks
+
+    t0 = time.perf_counter()
+    G = copy.deepcopy(G32).to("cuda")
+    g = torch.Generator(device="cuda").manual_seed(15)
+    for m in G.modules():  # trained-like statistics and affine
+        if isinstance(m, BatchNorm2d):
+            c = m.num_features
+            m.running_mean.copy_(torch.randn(c, device="cuda", generator=g) * 0.1)
+            m.running_var.copy_(torch.rand(c, device="cuda", generator=g) + 0.5)
+            m.weight.copy_(torch.rand(c, device="cuda", generator=g) * 0.4 + 0.8)
+            m.bias.copy_(torch.randn(c, device="cuda", generator=g) * 0.1)
+    x = torch.rand(1, 3, SIZE, SIZE, device="cuda", generator=g) * 2 - 1
+    want = G.infer_masker(x)
+    n = len(folded_blocks(G))
+    got = fold_generator_bns(G).infer_masker(x)
+    errs = [((a - b).abs().max() / b.abs().max().clamp(min=1)).item()
+            for a, b in zip(got, want)]
+    if not max(errs) <= FOLD_BAR:
+        raise AssertionError(f"15.d folded forward: errors {errs}")
+    log(f"15.d fold_generator_bns ({n} conv + batch-norm blocks) f32 "
+        f"{SIZE}^2: depth, seg, mask within {', '.join(f'{e:.2e}' for e in errs)} "
+        f"of the unfolded forward; {time.perf_counter() - t0:.1f} s")
+    del G
+
+
+def tools_phase(torch, dev, root: Path, lists, G32) -> None:
+    """Phase 15 (see the module docstring); 15.b ran in phase 8.1."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        profiler_checks(torch, Path(out))
+    compare_checks(torch, root, lists)
+    fold_checks(torch, G32)
+    torch.cuda.empty_cache()
+    log(f"tools phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3794,6 +4002,7 @@ def run(torch) -> int:
         masker_out[where] = (d_w.cpu(), s_w.cpu())
         log(f"256^2 f32 all events on {where}: {time.perf_counter() - t0:.1f} s "
             f"(incl. model build)")
+    G32 = Gw  # the CPU's f32 model: phase 15.d folds a copy on the card
     mask_err = (res["cuda"]["mask"] - res["cpu"]["mask"]).abs().max().item()
     within, worst = lsb_agreement(res["cuda"]["flood"], res["cpu"]["flood"])
     log(f"card vs CPU: mask max err {mask_err:.3e}, flood within 1 LSB on "
@@ -3997,7 +4206,6 @@ def run(torch) -> int:
             torch, dev, lists, lambda: sides.append(_start_side(torch)))
         ddp_launches = parallel_phase(torch, dev,
                                       Path(data_dir.name) / "run")
-    data_dir.cleanup()
     lines = sides[0]()
     log("the side process's checks (phase 9's card against the CPU, 13.e's "
         "pool and 13.e(a), 14.c):")
@@ -4008,6 +4216,8 @@ def run(torch) -> int:
         spatial_train = spatial_train_phase(torch, dev)
         spatial_options = spatial_options_phase(torch, dev)
     spatial_configs = spatial_configs_phase(torch, dev)
+    tools_phase(torch, dev, Path(data_dir.name), lists, G32)
+    data_dir.cleanup()
     for r in rows:
         r["train_launches"] = train_launches[r["name"]]
         r["ddp_train_launches"] = ddp_launches[r["name"]]

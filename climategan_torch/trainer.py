@@ -19,7 +19,8 @@ logger (comet, the PNG writer) is skipped when absent. With
 ``train.fid.enable`` the evaluation also logs the painter's FID
 (``compute_val_fid``). Options that are not ported raise a ``ValueError``
 at ``setup`` naming their ROADMAP item: an orbax run dir raises where it
-would be loaded (A.11d).
+would be loaded, naming ``scripts/orbax_to_pth.py``, which converts it
+into a run dir of this trainer (A.11d).
 
 Data parallel (one process per rank, ``python -m torch.distributed.run``):
 the data axis is the process group (``tpu.mesh.data`` is -1 or its size,
@@ -637,8 +638,8 @@ class Trainer:
 
     def _load_part(self, path, parts) -> bool:
         """The masker and/or painter of a ``.pth`` or run dir into the live
-        generator (reference trainer.py:440-527); an orbax dir raises
-        (ROADMAP A.11d)."""
+        generator (reference trainer.py:440-527); an orbax dir raises,
+        naming its converter (ROADMAP A.11d)."""
         load_partial_state(path, self.state.G, self.opts, parts)
         return True
 

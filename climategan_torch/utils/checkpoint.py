@@ -186,8 +186,8 @@ def restore_checkpoint(directory, state) -> Tuple[Optional[Dict], int]:
     ``checkpoints/``) into ``state`` in place: both models, both optimizer
     states, the step and the draws' generator. Returns ``(checkpoint,
     epoch)``, or ``(None, -1)`` when there is none. Keys that differ from
-    the model's raise, naming them; an orbax checkpoint raises (ROADMAP
-    A.11d)."""
+    the model's raise, naming them; an orbax checkpoint raises, naming
+    ``scripts/orbax_to_pth.py``, which converts it (ROADMAP A.11d)."""
     from climategan_torch.utils.serving import torch_checkpoint
 
     directory = Path(directory)

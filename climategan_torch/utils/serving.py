@@ -15,7 +15,8 @@ The product story is "download the released trained weights and point
   * **orbax run dir** (``checkpoints/latest.json`` naming no ``.pth``): the
     JAX package's own format. It is recognised so that the answer is the
     same as the JAX package's, but loading it raises: reading orbax needs
-    the JAX stack (ROADMAP A.11d).
+    the JAX stack, so ``scripts/orbax_to_pth.py`` converts such a dir once,
+    on a host that has it, into a run dir of the port (ROADMAP A.11d).
 
 Opts are found next to the checkpoint (``opts.json`` / ``opts.yaml`` /
 ``opts.yml`` in the run dir) and merged over the port's defaults, which
@@ -121,14 +122,16 @@ def discover_opts(run: Path, overrides=None) -> Opts:
 
 def torch_checkpoint(path) -> Path:
     """The ``.pth`` file a resume path resolves to; an orbax run dir raises
-    a ValueError naming ROADMAP A.11d."""
+    a ValueError naming ROADMAP A.11d and the converter."""
     kind, p = resolve_checkpoint(path)
     if kind == "orbax":
         raise ValueError(
             f"{p} is an orbax run dir (checkpoints/latest.json), the JAX "
-            f"package's checkpoint format, which the PyTorch port cannot "
-            f"read (ROADMAP A.11d); the port serves and resumes reference "
-            f".pth files, reference-style run dirs "
+            f"package's checkpoint format, which the PyTorch port does not "
+            f"read (ROADMAP A.11d): convert it once on a host with JAX and "
+            f"orbax, `python scripts/orbax_to_pth.py -i {p} -o <run dir>`, "
+            f"and serve or resume the run dir it writes; the port serves "
+            f"and resumes reference .pth files, reference-style run dirs "
             f"(checkpoints/latest_ckpt.pth) and its own trainer's run dirs")
     return p
 

@@ -1083,3 +1083,52 @@ def test_deeplab_v2_dropout_under_remat_on_the_card(shards):
             1e-12 * abs(float(v)) + 1e-15, k
     print(hold_state(got.G, want.G.state_dict(), builder.g_lr, got_mu,
                      want_mu, what=f"remat, {shards} shard(s)"))
+
+
+def test_profiler_puts_every_spade_cond_kernel_in_a_painter_stage(tmp_path):
+    """climategan_torch.profile_inference on one tiny forward (the tiny
+    opts below 128^2): every spade_cond kernel in the trace is linked to a
+    painter/* stage, as many as the wrapper launched, and the stages sum
+    to the device total within 1%."""
+    from climategan_torch import profile_inference
+
+    _device()
+    res = profile_inference.run(profile_inference.parse_args([
+        "--size", "64", "--batch", "1", "--iters", "1", "--events", "all",
+        "--out", str(tmp_path)]))
+    spade = [stage for name, stage, _ in res["rows"] if "spade_cond" in name]
+    assert len(spade) == res["launches"]["spade_cond"] > 0
+    assert all(stage.startswith("painter/") for stage in spade), spade
+    assert res["attributed_ms"] == pytest.approx(res["total_ms"], rel=1e-2)
+    for stage in ("masker/encoder", "masker/seg_decoder",
+                  "masker/depth_decoder", "masker/mask_decoder"):
+        assert res["stages_ms"].get(stage, 0) > 0, stage
+
+
+def test_folded_forward_on_the_card_matches_the_unfolded():
+    """fold_generator_bns on the tiny default generator in f32 (TF32 off),
+    its batch norms with seeded statistics: depth, seg and mask within
+    1e-5 of the unfolded forward."""
+    import copy
+
+    from climategan_torch.models.generator import create_generator
+    from climategan_torch.models.norms import BatchNorm2d
+    from climategan_torch.profile_inference import tiny_opts
+    from climategan_torch.utils.bn_fold import fold_generator_bns
+
+    dev = _device()
+    G = create_generator(tiny_opts(64), 0).to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(5)
+    with torch.no_grad():
+        for m in G.modules():
+            if isinstance(m, BatchNorm2d):
+                c = m.num_features
+                m.running_mean.copy_(torch.randn(c, device=dev, generator=g) * 0.1)
+                m.running_var.copy_(torch.rand(c, device=dev, generator=g) + 0.5)
+                m.weight.copy_(torch.rand(c, device=dev, generator=g) * 0.4 + 0.8)
+                m.bias.copy_(torch.randn(c, device=dev, generator=g) * 0.1)
+        x = torch.rand(2, 3, 64, 64, device=dev, generator=g) * 2 - 1
+        want = G.infer_masker(x)
+        got = fold_generator_bns(copy.deepcopy(G)).infer_masker(x)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
