@@ -133,9 +133,13 @@ Phases, any failure exits non-zero:
      policy): finite losses, every mask-decoder parameter moved, p50 of 3
      steps and peak memory; then one full-width forward each of the
      MobileNetV2 backbone, DeepLab v2, depth classification, the painter
-     with z (drawn on the card), the final shortcut and batch-norm SPADEs:
-     launches {18, 1, 1, 1, 1}, outputs checked, ms/batch, and the card's
-     f32 path against the CPU at 256^2 (z fed to both) with the same bars;
+     with z (drawn on the card), the final shortcut, batch-norm SPADEs and
+     the base mask decoder with layer norms and PReLUs
+     (gen.m.norm=spectral_layer gen.m.activ=prelu, its ms/batch also in
+     TURNS rounds with the default's): launches {18, 1, 1, 1, 1}, outputs
+     checked, ms/batch, and the card's f32 path against the CPU at 256^2
+     (z fed to both) with the same bars, there also with
+     gen.m.norm=layer gen.m.activ=selu;
      climategan_torch.bench_train in this process on depth classification
      (its bucket targets), its JSON line (value > 0).
   10. the step's options and FID: (1) at tiny_opts(32)'s sizes in f32
@@ -257,12 +261,13 @@ Phases, any failure exits non-zero:
      unsharded step's masked_blend, no spade_cond), and every masked_blend
      launch of one 2-shard remat step held against masked_blend_plain at
      phase 2's bars.
-  14. every other generator configuration on row shards (the seven of
+  14. every other generator configuration on row shards (the eight of
      phase 9: the SPADE masker, MobileNetV2, DeepLab v2, depth
      classification, the painter with z, the final shortcut, batch-norm
-     SPADEs), the shards on ["cuda:0"] * k: (a) each at full width (640^2,
-     batch 2, seed-0 weights) in f32 through build_spatial_infer_fn over 2
-     shards against its unsharded forward on the same model
+     SPADEs, the layer-norm and PReLU mask decoder), the shards on
+     ["cuda:0"] * k: (a) each at full width (640^2, batch 2, seed-0
+     weights) in f32 through build_spatial_infer_fn over 2 shards against
+     its unsharded forward on the same model
      (``infer.unsharded``; the painter's z drawn once and fed to both):
      every event within 1 LSB on >= 99.9% of values, the mask within
      SPATIAL_MASK_BAR, launch counts set to 0 before the sharded forward
@@ -281,7 +286,11 @@ Phases, any failure exits non-zero:
      phase 6's 7 photos (f32) within 1 LSB of the unsharded serve on >=
      99.9% of values, launches per batch {18 k, k, k, k, k}, and
      climategan_torch.bench --spatial --stage masker on the SPADE masker,
-     its JSON line.
+     its JSON line; (f) the layer-norm and PReLU mask decoder's full-width
+     bf16 train_step, unsharded in TURNS rounds with the default's, then
+     over 2 shards: finite losses, every gamma, beta and alpha of the mask
+     decoder moved, launches masked_blend 2 k and nothing else, p50 ms and
+     peak memory (information).
   15. the tools (at most 40 s; each part's seconds on standard error): (a)
      climategan_torch.profile_inference's run() in this process at 640^2
      bf16 batch 2, --events all --iters 2: the stages sum to the
@@ -1282,6 +1291,8 @@ def trainer_phase(torch, dev, beside=None) -> tuple:
 # phase 9: the other generator configurations
 SPADE_MASKER = ["gen.m.use_spade=true"]  # the default gen.m.spade: cond_nc 15
 MASK_DECODER_CALLS = 6  # a dual and a norm_1 launch in each of 3 blocks
+# the base mask decoder's layer norms and PReLUs
+MASK_LAYER_PRELU = ["gen.m.norm=spectral_layer", "gen.m.activ=prelu"]
 CONFIG_RUNS = {
     "mobilenet": ["gen.deeplabv3.backbone=mobilenet"],
     "deeplabv2": ["gen.encoder.architecture=deeplabv2",
@@ -1291,7 +1302,11 @@ CONFIG_RUNS = {
     "painter_z": ["gen.p.no_z=false"],
     "final_shortcut": ["gen.p.use_final_shortcut=true"],
     "batch_spade": ["gen.p.spade_param_free_norm=batch"],
+    "mask_layer_prelu": MASK_LAYER_PRELU,
 }
+# held only by the card against the CPU at SMALL^2 (config_cpu_checks)
+CPU_CHECK_RUNS = {"mask_layer_selu": ["gen.m.norm=layer", "gen.m.activ=selu"]}
+TURNS = 3  # rounds of 9.6's and 14.f's timings in turns with the default
 
 
 def narrow_w1(k1, hids):
@@ -1341,14 +1356,14 @@ def card_vs_cpu(torch, opts, what, z_shape=None):
 
 def config_cpu_checks(torch, dev) -> None:
     """Phase 9's card against the CPU at SMALL^2 (``card_vs_cpu``): the
-    SPADE masker and each configuration of CONFIG_RUNS, z fed to both
-    where the painter takes one."""
+    SPADE masker and each configuration of CONFIG_RUNS and CPU_CHECK_RUNS,
+    z fed to both where the painter takes one."""
     from climategan_torch.models.generator import GenConfig
     from climategan_torch.utils.opts import load_opts
 
     card_vs_cpu(torch, load_opts(commandline_opts=SPADE_MASKER),
                 "SPADE masker")
-    for name, overrides in CONFIG_RUNS.items():
+    for name, overrides in {**CONFIG_RUNS, **CPU_CHECK_RUNS}.items():
         copts = load_opts(commandline_opts=overrides)
         cfg = GenConfig.from_opts(copts)
         z_shape = None
@@ -1636,6 +1651,13 @@ def configs_phase(torch, dev, x, uniform, infer_default, painter_calls) -> dict:
                      reps=3)
         log(f"{name}: {SIZE}^2 bf16 batch {BATCH} all events {ms:.2f} ms "
             f"({1e3 * BATCH / ms:.3f} img/s), launches {paths[name]}")
+        if name == "mask_layer_prelu":
+            turns = [[cuda_ms(torch, lambda: f(x, uniform=uniform,
+                                                g_value=g_dev), reps=3)
+                      for f in (infer_default, inf)] for _ in range(TURNS)]
+            log(f"{name} in turns with the default config ({TURNS} rounds "
+                f"of 3 forwards each): ms/batch " + "; ".join(
+                    f"default {a:.2f}, {name} {b:.2f}" for a, b in turns))
         del Gc, inf, out
 
     # ---- 9.7 bench_train on depth classification (bucket targets) --------
@@ -3376,6 +3398,98 @@ def config_rows_tiny(torch, dev) -> None:
     log(f"14.c: {time.perf_counter() - t0:.1f} s")
 
 
+def mask_norm_steps(torch, dev) -> None:
+    """Phase 14.f: the layer-norm and PReLU mask decoder's full-width bf16
+    train_step (640^2, BATCH per domain) unsharded, in turns with the
+    default configuration's, then over SPATIAL_CONFIG_SHARDS shards:
+    finite losses, launches masked_blend 2 k and nothing else, every
+    gamma, beta and alpha of the mask decoder moved by the unsharded
+    steps and again by the sharded ones (ExtraAdam's second step of a pair
+    may put a value back where the pair began); p50 ms and peak memory
+    (information)."""
+    import statistics
+
+    from climategan_torch import bench_train, kernels
+    from climategan_torch.train_step import StepBuilder
+    from climategan_torch.utils.opts import load_opts
+
+    t0 = time.perf_counter()
+    k = SPATIAL_CONFIG_SHARDS
+    batch = bench_train.synthetic_batch(BATCH, SIZE, 160, dev)
+    builders = {name: StepBuilder(load_opts(commandline_opts=overrides))
+                for name, overrides in (("default", []),
+                                        ("mask_layer_prelu",
+                                         MASK_LAYER_PRELU))}
+    states = {name: b.init_state(0, dev) for name, b in builders.items()}
+
+    def norm_values():
+        return {n: p.detach().clone() for n, p in
+                states["mask_layer_prelu"].G.decoders["m"].named_parameters()
+                if n.endswith((".gamma", ".beta", ".activation.weight"))}
+
+    def unmoved(before):
+        return [n for n, v in norm_values().items()
+                if torch.equal(v, before[n])]
+
+    first = norm_values()
+    # a layer norm in every Conv2dBlock but the output conv, a PReLU in
+    # every one but the output conv and each ResBlock's second
+    c = states["mask_layer_prelu"].G.cfg
+    blocks = 3 + 2 * c.m_n_res + c.m_n_upsample
+    if len(first) != 2 * blocks + blocks - c.m_n_res:
+        raise AssertionError(f"14.f mask decoder: {sorted(first)}")
+
+    def step(name, devices=None) -> float:
+        """One train_step of ``name`` with its checks; its ms."""
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        states[name], metrics = builders[name].train_step(
+            states[name], batch, devices=devices)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        shards = len(devices or [dev])
+        want = {n: (2 * shards if n == "masked_blend" else 0)
+                for n in MAIN_PATH_LAUNCHES}
+        if dict(kernels.launches) != want:
+            raise AssertionError(f"14.f {name}, {shards} shard(s): "
+                                 f"launches {dict(kernels.launches)}")
+        if not all(torch.isfinite(v).all() for v in metrics.values()):
+            raise AssertionError(f"14.f {name}: non-finite losses")
+        return ms
+
+    for name in states:
+        step(name)  # each model's first step
+    torch.cuda.reset_peak_memory_stats(dev)
+    turns = [{name: step(name) for name in states} for _ in range(TURNS)]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if unmoved(first):
+        raise AssertionError(f"14.f: {unmoved(first)} unmoved")
+    p50 = {name: statistics.median(t[name] for t in turns) for name in states}
+    log(f"14.f mask_layer_prelu bf16 train_step ({SIZE}^2, {BATCH} per "
+        f"domain), {TURNS} in turns with the default's: p50 "
+        f"{p50['mask_layer_prelu']:.2f} ms against the default's "
+        f"{p50['default']:.2f} (" + "; ".join(
+            f"{t['default']:.2f}, {t['mask_layer_prelu']:.2f}"
+            for t in turns) + f"); peak {peak:.2f} GiB with both states; "
+        f"finite losses; all {len(first)} gamma, beta and alpha moved")
+    del states["default"], builders["default"]
+    torch.cuda.empty_cache()
+    devices = [SPATIAL_DEVICE] * k
+    before = norm_values()
+    step("mask_layer_prelu", devices)  # the first sharded step
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = step("mask_layer_prelu", devices)
+    if unmoved(before):
+        raise AssertionError(f"14.f, {k} shards: {unmoved(before)} unmoved")
+    log(f"14.f mask_layer_prelu bf16 train_step over {k} shards: {ms:.2f} "
+        f"ms, peak {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} "
+        f"GiB, finite losses, every gamma, beta and alpha moved over its "
+        f"two steps; {time.perf_counter() - t0:.1f} s")
+    del states, builders, batch
+    torch.cuda.empty_cache()
+
+
 def _config_launches(name: str, k: int) -> dict:
     """Each kernel's launches in a k-shard forward of configuration
     ``name`` with all three events."""
@@ -3593,6 +3707,8 @@ def spatial_configs_phase(torch, dev) -> dict:
     log(f"14.e bench {' '.join(argv)} on {[SPATIAL_DEVICE] * k} (one card: "
         f"no scaling): {json.dumps(line)}")
     log(f"14.e: {time.perf_counter() - t0:.1f} s")
+    with torch.inference_mode(False), torch.enable_grad():
+        mask_norm_steps(torch, dev)
     log(f"row-sharded configurations phase: "
         f"{time.perf_counter() - t_phase:.1f} s")
     return launched

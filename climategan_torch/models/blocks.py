@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from climategan_torch.models.norms import (
     BatchNorm2d,
+    LayerNorm,
     SNConv,
     SPADE,
     dual_spade,
@@ -37,10 +38,13 @@ def lrelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """An activation without parameters by name (``prelu`` is ``PReLU``)."""
     if kind == "relu":
         return F.relu(x)
     if kind == "lrelu":
         return lrelu(x)
+    if kind == "selu":
+        return F.selu(x)
     if kind == "tanh":
         return torch.tanh(x)
     if kind == "sigmoid":
@@ -48,6 +52,28 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "none":
         return x
     raise ValueError(f"Unsupported activation: {kind}")
+
+
+ACTIVATIONS = ("relu", "lrelu", "prelu", "selu", "tanh", "sigmoid", "none")
+
+
+class PReLU(nn.PReLU):
+    """The reference's ``nn.PReLU()`` (one learned slope, key ``weight``,
+    0.25 at first), computed as the JAX package computes it: ``x`` where
+    it is >= 0, else the slope (in x's dtype, on x's device) times ``x``;
+    the gradient at x == 0 is 1, where ``F.prelu`` takes the slope."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        slope = self.weight.to(device=x.device, dtype=x.dtype)
+        return torch.where(x >= 0, x, slope * x)
+
+
+def post_norm(norm: str) -> str:
+    """The norm a ``Conv2dBlock`` of ``norm`` applies after its conv:
+    ``spectral_<n>`` -> ``n``, ``spectral`` -> ``none``."""
+    if norm.startswith("spectral_"):
+        return norm[len("spectral_"):]
+    return "none" if norm == "spectral" else norm
 
 
 class UpsampleNearest(nn.Module):
@@ -79,7 +105,10 @@ def run_layers_rows(layers: nn.Sequential, x: Rows,
 class Conv2dBlock(nn.Module):
     """pad -> conv (optionally spectral) -> norm -> activation, with the
     reference bias rule: a non-spectral conv drops its bias before a batch
-    norm."""
+    norm. The norm (``spectral_``-prefixed or not): batch (``norm``, a
+    ``BatchNorm2d``), instance (no parameters), layer (``norm``, a
+    ``LayerNorm``) or none; a ``prelu`` activation is the module
+    ``activation`` (key ``activation.weight``)."""
 
     def __init__(self, input_dim: int, output_dim: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, dilation: int = 1,
@@ -87,25 +116,28 @@ class Conv2dBlock(nn.Module):
                  pad_type: str = "zero", bias: bool = True):
         super().__init__()
         use_spectral = norm == "spectral" or norm.startswith("spectral_")
-        post_norm = norm.replace("spectral_", "") if norm.startswith(
-            "spectral_") else ("none" if norm == "spectral" else norm)
-        use_bias = bias if use_spectral or post_norm != "batch" else False
+        after = post_norm(norm)
+        use_bias = bias if use_spectral or after != "batch" else False
         if pad_type not in _PAD_MODES:
             raise ValueError(f"Unsupported padding type: {pad_type}")
-        if activation not in ("relu", "lrelu", "tanh", "sigmoid", "none"):
+        if activation not in ACTIVATIONS:
             raise ValueError(f"Unsupported activation: {activation}")
+        if after not in ("batch", "instance", "layer", "none"):
+            raise ValueError(f"Unsupported normalization: {after}")
         self.padding, self.pad_mode = padding, _PAD_MODES[pad_type]
-        self.activation = activation
+        self.activ = activation
         self.conv = SNConv(input_dim, output_dim, kernel_size, stride,
                            dilation=dilation, bias=use_bias,
                            spectral=use_spectral)
-        if post_norm == "batch":
-            self.norm = BatchNorm2d(output_dim)
-        elif post_norm in ("instance", "none"):
-            self.norm = None
-        else:
-            raise NotImplementedError(f"Conv2dBlock norm {post_norm!r}")
-        self.instance = post_norm == "instance"
+        self.norm = (BatchNorm2d(output_dim) if after == "batch" else
+                     LayerNorm(output_dim) if after == "layer" else None)
+        self.instance = after == "instance"
+        self.activation = PReLU() if activation == "prelu" else None
+
+    def _activate(self, x: torch.Tensor) -> torch.Tensor:
+        if self.activation is None:
+            return activation(x, self.activ)
+        return self.activation(x)
 
     def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
         if self.padding:
@@ -116,11 +148,13 @@ class Conv2dBlock(nn.Module):
             x = self.norm(x)
         elif self.instance:
             x = instance_norm(x)
-        return activation(x, self.activation)
+        return self._activate(x)
 
     def forward_rows(self, x: Rows, update_sn: bool = False) -> Rows:
         """The forward on a row-sharded map: the pad is applied where a
-        window crosses the image's top or bottom."""
+        window crosses the image's top or bottom. A PReLU's slope is read
+        from the shard's replica in eval mode, else from the one
+        parameter."""
         mode = "zero" if self.pad_mode == "constant" else self.pad_mode
         x = spatial.conv2d(x, self.conv, pad=self.padding, mode=mode,
                            update_sn=update_sn)
@@ -128,7 +162,9 @@ class Conv2dBlock(nn.Module):
             x = self.norm.forward_rows(x)
         elif self.instance:
             x = spatial.instance_norm(x)
-        return x.map(lambda p: activation(p, self.activation))
+        if self.activation is not None and not self.training:
+            return x.map(lambda p: spatial.local(self.activation, p.device)(p))
+        return x.map(self._activate)
 
 
 class ResBlock(nn.Module):

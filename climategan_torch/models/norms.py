@@ -1,12 +1,14 @@
-"""Convolutions with spectral norm, batch norm, instance norm and SPADE
-(NCHW), in an inference mode and a training mode.
+"""Convolutions with spectral norm, batch norm, instance norm, the
+reference's layer norm and SPADE (NCHW), in an inference mode and a
+training mode.
 
 Parameter names follow the reference torch modules, so a reference state
 dict loads with plain ``load_state_dict``:
   * a spectral conv keeps ``module.weight_bar`` / ``module.bias`` /
     ``module.weight_u`` / ``module.weight_v``; a plain conv ``weight`` /
     ``bias``;
-  * ``BatchNorm2d`` keeps nn.BatchNorm2d's keys;
+  * ``BatchNorm2d`` keeps nn.BatchNorm2d's keys, ``LayerNorm`` the
+    reference's ``gamma`` / ``beta``;
   * ``SPADE`` keeps ``mlp_shared.0`` / ``mlp_gamma`` / ``mlp_beta`` (and
     ``param_free_norm``'s running statistics with a batch norm).
 
@@ -296,11 +298,76 @@ class _GlobalBatchNorm(torch.autograd.Function):
         return (dw, db, None, *dxs)
 
 
+class LayerNorm(nn.Module):
+    """The reference's layer norm (the JAX package's ``LayerNormRef``):
+    each sample normalized over all of C, H and W by its mean and its
+    **unbiased** std, as ``(x - mean) / (std + eps)`` (the eps on the std,
+    not the variance), then a per-channel ``gamma`` and ``beta`` (keys
+    ``gamma``, ``beta``). The math runs in f32 (float64 for float64
+    inputs), upcast explicitly whatever autocast does, and the output
+    takes the input's dtype. No running statistics: train and eval modes
+    compute alike."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.gamma = nn.Parameter(torch.empty(num_features).uniform_())
+        self.beta = nn.Parameter(torch.zeros(num_features))
+
+    def _affine(self, d: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+        """``d`` (the deviations from the mean, f32 or float64) over
+        ``std + eps``, times gamma plus beta, read on d's device (in eval
+        mode, from the replica there)."""
+        own = self if self.training else spatial.local(self, d.device)
+        gamma = own.gamma.to(device=d.device, dtype=d.dtype)
+        beta = own.beta.to(device=d.device, dtype=d.dtype)
+        return (d / (std + self.eps)) * gamma[None, :, None, None] \
+            + beta[None, :, None, None]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        st = torch.promote_types(x.dtype, torch.float32)
+        flat = x.reshape(x.shape[0], -1).to(st)
+        mean = flat.mean(1)[:, None, None, None]
+        std = flat.std(1, correction=1)[:, None, None, None]
+        return self._affine(x.to(st) - mean, std).to(x.dtype)
+
+    def forward_rows(self, r: Rows) -> Rows:
+        """The forward on a row-sharded map: each sample's sum from every
+        shard's rows (float64, on the first shard's device through
+        ``spatial.all_reduce``, which carries the gradient), the mean, then
+        the squared deviations from it summed so: two passes, as
+        ``spatial.instance_norm`` takes them. A shard with no rows gives
+        nothing. Nothing is summed over data-parallel ranks: the norm is
+        per sample. In eval mode each shard reads gamma and beta of its
+        device's replica; in train mode the one parameter set."""
+        n, c = r.parts[0].shape[:2]
+        count = c * r.h * r.w
+        st = torch.promote_types(r.dtype, torch.float32)
+        xfs = [p.to(st) for p in r.parts]
+        means = [(s / count).to(st) for s in _sample_sums(xfs, n, r.devices)]
+        ds = [xf - m for xf, m in zip(xfs, means)]
+        stds = [(s / (count - 1)).sqrt().to(st)
+                for s in _sample_sums([d * d for d in ds], n, r.devices)]
+        return Rows([self._affine(d, s).to(p.dtype)
+                     for d, s, p in zip(ds, stds, r.parts)])
+
+
+def _sample_sums(parts, n: int, devices) -> list:
+    """Each sample's sum over the shards' (N, C, rows, W) ``parts``,
+    accumulated in float64, (N, 1, 1, 1) on every shard's device, with
+    the gradient to each part; a part without rows gives nothing."""
+    return spatial.all_reduce(
+        [p.sum((1, 2, 3), dtype=torch.float64).reshape(n, 1, 1, 1)
+         if p.shape[2] else None for p in parts], "sum", devices)
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights from ``generator`` (drawn on the CPU): conv kernels
     and biases uniform in +-1/sqrt(fan_in), unit spectral u/v, batch-norm
-    affine and statistics near identity; spectral kernels re-baked."""
+    affine and statistics near identity, a layer norm's gamma uniform in
+    [0, 1) and beta zero and a PReLU's slope 0.25 (as the JAX package
+    initialises them); spectral kernels re-baked."""
     def fill(t, lo, hi):
         r = torch.rand(t.shape, generator=generator, dtype=torch.float32)
         t.copy_(lo + (hi - lo) * r)
@@ -326,6 +393,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 fill(mod.bias, -0.1, 0.1)
             fill(mod.running_mean, -0.1, 0.1)
             fill(mod.running_var, 0.8, 1.2)
+        elif isinstance(mod, LayerNorm):
+            fill(mod.gamma, 0.0, 1.0)
+            mod.beta.zero_()
+        elif isinstance(mod, nn.PReLU):
+            mod.weight.fill_(0.25)
     for mod in model.modules():
         if isinstance(mod, SNConv):
             mod.bake()

@@ -8,7 +8,8 @@ with spectral ``u``/``v`` becomes ``<key>.module.weight_bar`` /
 wrapper's ``scale``/``bias``/``mean``/``var`` become ``weight``/``bias``/
 ``running_mean``/``running_var`` (plus a zero ``num_batches_tracked``); a
 batch norm without affine parameters (a SPADE's ``param_free_norm``) keeps
-only the statistics.
+only the statistics; a layer norm keeps ``gamma``/``beta`` and a PReLU's
+scalar ``alpha`` becomes ``activation.weight`` of shape (1,).
 It is the inverse of the JAX package's reference -> JAX converter, and
 carries everything a train-mode model reads (running statistics, u/v).
 ``d_state_dict_from_jax(variables, dcfg)`` does the same for the
@@ -29,6 +30,7 @@ from typing import Any, Dict, Iterable, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from climategan_torch.models.blocks import post_norm
 from climategan_torch.models.discriminator import DisConfig
 from climategan_torch.models.generator import GenConfig, OmniGenerator
 from climategan_torch.models.mobilenet import STAGES as MOBILENET_STAGES
@@ -37,10 +39,18 @@ Path = Tuple[str, ...]
 Entry = Tuple[str, str, Path]  # (kind, torch key, JAX path)
 
 
-def _conv2dblock(tkey: str, path: Path, batch: bool) -> Iterator[Entry]:
+def _conv2dblock(tkey: str, path: Path, norm: str = "none",
+                 activ: str = "none") -> Iterator[Entry]:
+    """A Conv2dBlock of ``norm`` and ``activ``: its conv, a batch norm's
+    or a layer norm's parameters, a PReLU's slope."""
     yield "conv", f"{tkey}.conv", path + ("conv",)
-    if batch:
+    after = post_norm(norm)
+    if after == "batch":
         yield "bn", f"{tkey}.norm", path + ("norm", "BatchNorm_0")
+    elif after == "layer":
+        yield "ln", f"{tkey}.norm", path + ("norm",)
+    if activ == "prelu":
+        yield "prelu", f"{tkey}.activation", path + ("activ",)
 
 
 def _convbn(tkey: str, path: Path) -> Iterator[Entry]:
@@ -89,46 +99,49 @@ def _encoder(cfg: GenConfig) -> Iterator[Entry]:
             for ci in (0, 1):
                 yield from _conv2dblock(
                     f"encoder.model.layer_res.model.{r}.model.{ci}",
-                    ("encoder", "layer_res", f"block{r}", f"conv{ci + 1}"), False)
+                    ("encoder", "layer_res", f"block{r}", f"conv{ci + 1}"),
+                    "instance")
     elif cfg.backbone == "mobilenet":
         yield from _mobilenet()
     else:
         yield from _resnet("encoder", ("encoder",), cfg.encoder_layers)
 
 
-def _base_decoder(t: str, p: Path, n_res: int, n_up: int, batch: bool,
-                  low_level: bool) -> Iterator[Entry]:
+def _base_decoder(t: str, p: Path, n_res: int, n_up: int, norm: str,
+                  activ: str, low_level: bool) -> Iterator[Entry]:
     """A BaseDecoder (``proj_conv``, the low-level convs, ``model``: the
-    ResBlocks, then an upsample and a conv per step, then the output
-    conv)."""
-    yield from _conv2dblock(f"{t}.proj_conv", p + ("proj_conv",), batch)
+    ResBlocks, then an upsample and a conv per step, then the output conv,
+    which has no norm and no PReLU) of ``norm`` and ``activ``."""
+    yield from _conv2dblock(f"{t}.proj_conv", p + ("proj_conv",), norm, activ)
     if low_level:
         for name in ("low_level_conv", "merge_feats_conv"):
-            yield from _conv2dblock(f"{t}.{name}", p + (name,), batch)
+            yield from _conv2dblock(f"{t}.{name}", p + (name,), norm, activ)
     for r in range(n_res):
         for ci in (0, 1):
+            # a ResBlock's second conv is not activated
             yield from _conv2dblock(f"{t}.model.0.model.{r}.model.{ci}",
                                     p + ("res_blocks", f"block{r}", f"conv{ci + 1}"),
-                                    batch)
+                                    norm, activ if ci == 0 else "none")
     for u in range(n_up):
         yield from _conv2dblock(f"{t}.model.{2 + 2 * u}", p + (f"up_conv{u}",),
-                                batch)
-    yield from _conv2dblock(f"{t}.model.{1 + 2 * n_up}", p + ("out_conv",), False)
+                                norm, activ)
+    yield from _conv2dblock(f"{t}.model.{1 + 2 * n_up}", p + ("out_conv",))
 
 
 def _depth(cfg: GenConfig) -> Iterator[Entry]:
     p = ("depth_decoder",)
     if cfg.d_architecture != "dada":
         yield from _base_decoder("decoders.d", p + ("decoder",), 1,
-                                 1 if cfg.d_upsample_featuremaps else 0, True,
-                                 False)
+                                 1 if cfg.d_upsample_featuremaps else 0,
+                                 "batch", "lrelu", False)
         return
     for name in ("enc4_1", "enc4_2", "enc4_3"):
-        yield from _conv2dblock(f"decoders.d.{name}", p + (name,), True)
+        yield from _conv2dblock(f"decoders.d.{name}", p + (name,), "batch")
     if cfg.m_use_dada or ("s" in cfg.tasks and cfg.s_use_dada):
-        yield from _conv2dblock("decoders.d.dec4", p + ("dec4",), False)
+        yield from _conv2dblock("decoders.d.dec4", p + ("dec4",))
     if cfg.d_upsample_featuremaps:
-        yield from _conv2dblock("decoders.d.upsample.1", p + ("up_conv",), True)
+        yield from _conv2dblock("decoders.d.upsample.1", p + ("up_conv",),
+                                "batch")
         yield "conv", "decoders.d.upsample.2", p + ("up_out", "conv")
 
 
@@ -182,7 +195,7 @@ def _mask(cfg: GenConfig) -> Iterator[Entry]:
     if not cfg.m_use_spade:
         yield from _base_decoder(
             "decoders.m", ("mask_decoder", "decoder"), cfg.m_n_res,
-            cfg.m_n_upsample, cfg.m_norm == "batch",
+            cfg.m_n_upsample, cfg.m_norm, cfg.m_activ,
             cfg.m_use_low_level_feats and cfg.encoder_arch != "deeplabv2")
         return
     p = ("mask_decoder",)
@@ -192,11 +205,12 @@ def _mask(cfg: GenConfig) -> Iterator[Entry]:
         names = ("low_level_conv",) + (("high_level_conv",) if cfg.m_use_proj
                                        else ()) + ("merge_feats_conv",)
     for name in names:
-        yield from _conv2dblock(f"decoders.m.{name}", p + (name,), True)
+        yield from _conv2dblock(f"decoders.m.{name}", p + (name,),
+                                "spectral_batch")
     for i in range(cfg.m_spade_num_layers):
         yield from _spade_block(f"decoders.m.spade_blocks.{i}",
                                 p + (f"spade_block{i}",), True, True)
-    yield from _conv2dblock("decoders.m.mask_conv", p + ("mask_conv",), False)
+    yield from _conv2dblock("decoders.m.mask_conv", p + ("mask_conv",))
 
 
 def _painter(cfg: GenConfig) -> Iterator[Entry]:
@@ -219,9 +233,10 @@ def _painter(cfg: GenConfig) -> Iterator[Entry]:
 
 
 def entries(cfg: GenConfig) -> Iterator[Entry]:
-    """(kind, torch key prefix, JAX path) for every conv and batch norm
-    ("conv", "bn", or "stats" for a batch norm without affine
-    parameters)."""
+    """(kind, torch key prefix, JAX path) for every conv, norm and PReLU
+    ("conv"; "bn", or "stats" for a batch norm without affine parameters;
+    "ln" for a layer norm's gamma and beta; "prelu" for a PReLU's
+    slope)."""
     if any(t in cfg.tasks for t in "msd"):
         yield from _encoder(cfg)
     if "d" in cfg.tasks:
@@ -272,6 +287,18 @@ def state_dict_from_entries(variables: Dict, items: Iterable[Entry]
             sd[f"{tkey}.running_mean"] = _tensor(s["mean"])
             sd[f"{tkey}.running_var"] = _tensor(s["var"])
             sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+            continue
+        if kind in ("ln", "prelu"):
+            p = _get(params, path)
+            names = ("gamma", "beta") if kind == "ln" else ("alpha",)
+            if p is None or any(n not in p for n in names):
+                raise KeyError(f"no {'/'.join(names)} at {'/'.join(path)}")
+            if kind == "ln":
+                sd[f"{tkey}.gamma"] = _tensor(p["gamma"])
+                sd[f"{tkey}.beta"] = _tensor(p["beta"])
+            else:
+                # JAX's scalar slope; nn.PReLU's weight has shape (1,)
+                sd[f"{tkey}.weight"] = _tensor(p["alpha"]).reshape(1)
             continue
         _conv(sd, params, spectral, tkey, path)
     return sd

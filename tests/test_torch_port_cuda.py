@@ -1132,3 +1132,43 @@ def test_folded_forward_on_the_card_matches_the_unfolded():
         got = fold_generator_bns(copy.deepcopy(G)).infer_masker(x)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_layer_norm_on_the_card(shards):
+    """The base mask decoder's layer norm (``norms.LayerNorm``) on the
+    card, over the whole map or over ``shards`` row shards of the one card
+    (``forward_rows``: float64 per-sample sums through
+    ``spatial.all_reduce``): bf16 within one bf16 ulp of the same path's
+    f32 on the same input (the statistics and the affine run in f32 either
+    way); the f32 path within 1e-5 of the unsharded f32 forward, and so
+    its input gradient."""
+    from climategan_torch.models.norms import LayerNorm, init_weights
+    from climategan_torch.parallel import spatial
+
+    dev = _device()
+    ln = LayerNorm(16)
+    init_weights(ln, torch.Generator().manual_seed(0))
+    ln = ln.to(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(2, 16, 37, 29, device=dev, generator=g) * 3 + 1
+
+    def run(t):
+        if shards == 1:
+            return ln(t)
+        return ln.forward_rows(spatial.shard_rows(t, [dev] * shards)) \
+            .gather(dev)
+
+    x16 = x.bfloat16()
+    with torch.no_grad():
+        got, want = run(x16), run(x16.float())
+    assert got.dtype == torch.bfloat16
+    ulp = 2.0 ** (torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    assert bool(((got.float() - want).abs() <= ulp).all())
+    xa, xb = (x.clone().requires_grad_(True) for _ in range(2))
+    ya, yb = ln(xa), run(xb)
+    torch.testing.assert_close(yb, ya, rtol=1e-5, atol=1e-5)
+    r = torch.randn(ya.shape, device=dev, generator=g)
+    (ya * r).sum().backward()
+    (yb * r).sum().backward()
+    torch.testing.assert_close(xb.grad, xa.grad, rtol=1e-5, atol=1e-5)

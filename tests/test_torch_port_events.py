@@ -61,6 +61,7 @@ from climategan_torch.ops.blur import box_dilate, gaussian_blur
 from climategan_torch.utils.convert import state_dict_from_jax
 from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
     GRADE_MEANS,
+    compiled,
     grade_edge_planes,
     nchw,
     once_per_session,
@@ -277,7 +278,8 @@ def _infer_runs():
     baked = bake_spectral_norm(V)
     _, jinfer = jax_build_infer_fn(jopts, dtype=jnp.float32, ignore_event=(),
                                    donate=False, freeze_spectral=True)
-    want = {k: np.asarray(v) for k, v in jinfer(baked, x, rng).items()}
+    want = {k: np.asarray(v) for k, v in
+            compiled(jinfer, baked, x, rng)(baked, x, rng).items()}
     with frozen_spectral():
         jseg = np.asarray(G.apply(baked, x, method="infer_masker")[1])
     state_dict = state_dict_from_jax(V, GenConfig.from_opts(topts))

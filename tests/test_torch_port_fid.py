@@ -30,7 +30,10 @@ from climategan_torch.utils.convert import (
     inception_state_dict_from_jax,
     load_inception_weights,
 )
-from tests.torch_port_common import one_thread  # noqa: F401 (a fixture)
+from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
+    one_thread,
+    zeros_like_tree,
+)
 
 
 def scenes(seed, kind, n=4, size=64):
@@ -72,8 +75,14 @@ def pair(tmp_path_factory):
     torch.save(model.state_dict(), str(path))
     ev = fid.FIDEvaluator(load_inception_weights(
         str(path), fid.InceptionV3Features()), batch_size=4, device="cpu")
-    jev = jax_fid.FIDEvaluator(rng=jax.random.PRNGKey(0), batch_size=4)
-    jev.variables = jax_load_inception_weights(str(path), jev.variables)
+    # JAX's variables as the loader's template: zeros of the init's shapes
+    # (an eager init at 299^2 takes most of a minute on one core), every
+    # leaf then read from the .pth
+    shapes = jax.eval_shape(jax_fid.InceptionV3Features().init,
+                            jax.random.PRNGKey(0),
+                            jax.ShapeDtypeStruct((1, 299, 299, 3), jnp.float32))
+    jev = jax_fid.FIDEvaluator(variables=jax_load_inception_weights(
+        str(path), zeros_like_tree(shapes)), batch_size=4)
     return ev, jev, path, scenes(5, "horizon"), scenes(6, "stripes")
 
 

@@ -21,6 +21,7 @@ from climategan_torch.inference import build_infer_fn
 from climategan_torch.models.generator import GenConfig
 from climategan_torch.utils.convert import state_dict_from_jax
 from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
+    compiled,
     one_thread,
     tiny_pair,
 )
@@ -43,7 +44,8 @@ def runs():
             jopts, dtype=jnp.float32, bin_value=bin_value,
             ignore_event=("wildfire", "smog"), donate=False,
             freeze_spectral=True)
-        want = {k: np.asarray(v) for k, v in jinfer(baked, x, rng).items()}
+        want = {k: np.asarray(v) for k, v in
+                compiled(jinfer, baked, x, rng)(baked, x, rng).items()}
         _, infer = build_infer_fn(topts, dtype=torch.float32,
                                   bin_value=bin_value,
                                   ignore_event=("wildfire", "smog"),

@@ -18,7 +18,9 @@ from climategan_torch.ops.image import normalize, unit_range_to_uint8
 from climategan_torch.ops.interpolate import resize
 from climategan_torch.ops.perlin import mix_noise
 from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
+    compiled,
     nchw,
+    once_per_session,
     one_thread,
     tiny_pair,
     to_nhwc,
@@ -27,22 +29,41 @@ from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-@pytest.fixture(scope="module")
-def run():
-    """One pass of both models over the same input; every test reads it."""
-    _, _, G, V, tG = tiny_pair(64)
+def _inputs():
     rng = np.random.default_rng(1)
     x = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
     m = (rng.uniform(size=(2, 64, 64, 1)) > 0.5).astype(np.float32)
-    out = {}
-    z = G.apply(V, x, method="encode")
-    d, z_depth = G.apply(V, z, method="depth")
-    out["jax"] = {
-        "z_high": z[0], "z_low": z[1], "depth": d, "z_depth": z_depth,
-        "seg": G.apply(V, z, z_depth, method="segmentation"),
-        "mask": G.apply(V, x=None, z=z, method="mask"),
-        "paint": G.apply(V, m, x, method="paint"),
-    }
+    return x, m
+
+
+def _jax_outputs(G, V):
+    """JAX's modules on ``_inputs()``, numpy: one graph, compiled with
+    ``OPT0`` (op-by-op dispatch of the same calls took about a minute on
+    one core)."""
+    x, m = _inputs()
+
+    def outputs(V, x, m):
+        z = G.apply(V, x, method="encode")
+        d, z_depth = G.apply(V, z, method="depth")
+        return {
+            "z_high": z[0], "z_low": z[1], "depth": d, "z_depth": z_depth,
+            "seg": G.apply(V, z, z_depth, method="segmentation"),
+            "mask": G.apply(V, x=None, z=z, method="mask"),
+            "paint": G.apply(V, m, x, method="paint"),
+        }
+
+    return jax.tree_util.tree_map(np.asarray,
+                                  compiled(outputs, V, x, m)(V, x, m))
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """One pass of both models over the same input; every test reads it.
+    JAX's outputs are computed once per session (``once_per_session``)."""
+    _, _, G, V, tG = tiny_pair(64)
+    x, m = _inputs()
+    out = {"jax": once_per_session(tmp_path_factory, "torch_port_modules",
+                                   lambda: _jax_outputs(G, V))}
     with torch.no_grad():
         tz = tG.encode(nchw(x))
         td, tz_depth = tG.depth(tz)

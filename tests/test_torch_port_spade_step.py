@@ -5,9 +5,10 @@ JAX package's, on the CPU in f32 at tiny_opts(32).
 As tests/test_torch_port_train.py does for the default configuration: one
 module-scope fixture runs the JAX ``g_step`` and then ``d_step`` from
 numpy-drawn weights under one ``jax.jit`` (``tpu.painter_s2d`` and
-``FUSED_REFLECT`` off, XLA opt level 0), the draws from the state's key
-reach the port through ``draws=``, and each step is held from the same
-state on both sides: every loss within 1e-4 relative, the models by
+``FUSED_REFLECT`` off, XLA opt level 0; its numpy results computed once
+per test session and shared by the xdist workers), the draws from the
+state's key reach the port through ``draws=``, and each step is held from
+the same state on both sides: every loss within 1e-4 relative, the models by
 ``climategan_torch.utils.step_check.hold_state`` (first moments leaf by
 leaf, values whose gradient is not rounding noise within 1e-6, the
 batch-norm statistics, the SPADEs' batch-norm statistics included, and the
@@ -39,6 +40,8 @@ from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
     gan_draws,
     jax_d_variables,
     jax_variables,
+    moments_only,
+    once_per_session,
     one_thread,
     port_batch,
     step_draws,
@@ -55,7 +58,15 @@ def _split(variables):
 
 
 @pytest.fixture(scope="module")
-def run():
+def run(tmp_path_factory):
+    """The JAX states before, between and after the two steps, their
+    metrics, the draws, the batch and the port's opts; numpy trees,
+    computed once per session (``once_per_session``)."""
+    return once_per_session(tmp_path_factory, "torch_port_spade_step",
+                            _jax_run)
+
+
+def _jax_run():
     jopts = tiny_opts(SIZE)
     merge(Opts(SPADE_MASKER), jopts)
     jopts.train.bf16 = False
@@ -88,7 +99,9 @@ def run():
     state1, gm, state2, dm, val = out
     return dict(
         topts=load_opts(default=jopts.to_dict()), batch=batch,
-        states=(state0, state1, state2), metrics=(gm, dm, val),
+        states=tuple(moments_only(st) for st in (
+            jax.tree_util.tree_map(np.asarray, state0), state1, state2)),
+        metrics=(gm, dm, val),
         eval_draws=gan_draws(key, jb.cfg.soft_shift, jb.cfg.flip_prob),
         draws=step_draws(key, jb.cfg.soft_shift, jb.cfg.flip_prob),
         lr=(jb.g_lr, jb.d_lr))

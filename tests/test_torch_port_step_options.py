@@ -67,6 +67,7 @@ from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
     ABOVE_THE_KINK,
     jax_d_variables,
     jax_variables,
+    moments_only,
     once_per_session,
     one_thread,
     port_batch,
@@ -180,7 +181,8 @@ def _run_jax(overrides, n, seed=0):
     k = int(jopts.train.get("grad_accumulation", 1) or 1)
     return dict(
         topts=load_opts(default=jopts.to_dict()), batch=batch,
-        states=(jax.tree_util.tree_map(np.asarray, state0), state1, state2),
+        states=tuple(moments_only(st) for st in (
+            jax.tree_util.tree_map(np.asarray, state0), state1, state2)),
         metrics=(gm, dm),
         draws=step_draws(key, jb.cfg.soft_shift, jb.cfg.flip_prob),
         aug=(step_aug_draws(key, n // k, SIZE, SIZE)

@@ -549,6 +549,8 @@ def test_pretrained_backbone_loads_as_jax_does(run, jax_gen, tmp_path,
     pre["decoder.conv_out.weight"] = torch.zeros(19, 256, 1, 1)
     path = tmp_path / "deeplab.pth"
     torch.save({"state_dict": pre}, path)
+    conv1 = src_sd["encoder.conv1.weight"]
+    del pre, src_sd  # this test ran a worker out of memory beside others
     jopts, topts = copy.deepcopy(run.jopts), copy.deepcopy(run.topts)
     for opts in (jopts, topts):
         opts.gen.deeplabv3.use_pretrained = True
@@ -556,13 +558,14 @@ def test_pretrained_backbone_loads_as_jax_does(run, jax_gen, tmp_path,
     want_vars, loaded = jax_load(jopts, dst)
     assert loaded
     want = state_dict_from_jax(want_vars, cfg)
+    del want_vars
     G = OmniGenerator(cfg)
     G.load_state_dict(state_dict_from_jax(dst, cfg))
     assert maybe_load_pretrained_backbone(topts, G)
     got = G.state_dict()
     for k, v in want.items():
         assert torch.equal(got[k], v), k
-    assert torch.equal(got["encoder.conv1.weight"], src_sd["encoder.conv1.weight"])
+    assert torch.equal(got["encoder.conv1.weight"], conv1)
 
 
 def test_vgg19_weights_load_as_jax_does(tmp_path):

@@ -15,6 +15,7 @@ import functools
 import json
 import os
 import pickle
+from typing import Any, NamedTuple
 
 import numpy as np
 import pytest
@@ -31,6 +32,22 @@ from climategan_torch.utils.opts import load_opts as torch_load_opts
 # two-rank steps on another batch and by tests/test_torch_port_spatial_train
 # .py's float64 steps
 ABOVE_THE_KINK = ("encoder.layer4.", "decoders.", "painter.")
+
+
+# XLA:CPU options of the port tests' JAX compiles: the tiny graphs compile
+# several times faster at backend opt level 0 than at the default, and
+# still run in well under a second
+OPT0 = {"xla_backend_optimization_level": 0,
+        "xla_llvm_disable_expensive_passes": True}
+
+
+def compiled(fn, *args):
+    """``fn`` (a function, or a ``jax.jit`` of one) compiled for ``args``
+    with OPT0."""
+    import jax
+
+    jitted = fn if hasattr(fn, "lower") else jax.jit(fn)
+    return jitted.lower(*args).compile(compiler_options=OPT0)
 
 
 def once_per_session(tmp_path_factory, name: str, make):
@@ -52,6 +69,21 @@ def once_per_session(tmp_path_factory, name: str, make):
         value = make()
         path.write_bytes(pickle.dumps(value))
     return value
+
+
+class FirstMoments(NamedTuple):
+    """What the tests read of a JAX optimizer state: the first moments."""
+
+    mu: Any
+
+
+def moments_only(state):
+    """A JAX TrainState (numpy) with each optimizer state cut to its first
+    moments, which ``hold_state`` holds the port's to: the second moments
+    and ExtraAdam's saved parameters are each as large as the model, and
+    a test worker keeps its fixtures' states for the whole file."""
+    return state._replace(g_opt=FirstMoments(state.g_opt.mu),
+                          d_opt=FirstMoments(state.d_opt.mu))
 
 
 def jax_variables(opts, image_size: int, seed: int = 0):
@@ -195,11 +227,55 @@ def one_thread():
     """For the modules that import it: their CPU tests run small tensors,
     and under the suite's parallel workers torch's default of a thread per
     core oversubscribes the host many times over (a 2 s step took 79 s in
-    the full suite), so each of their tests runs on one thread."""
+    the full suite), so each of their tests runs on one thread. After the
+    module, the memory its fixtures held goes back to the system
+    (``release_memory``)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+    release_memory()
+
+
+# a test process past this resident size after a module also drops JAX's
+# compiled and traced functions (``release_memory``)
+RESIDENT_LIMIT_GIB = 3.0
+
+
+def release_memory():
+    """Hand what a finished module's fixtures held back to the system: the
+    suite's worker processes run one test module after another, and grew
+    to 7-12 GB each until one ran out of memory. Collect the garbage and
+    trim glibc's heap (it keeps freed chunks below its mmap threshold,
+    which it raises up to 32 MB); past RESIDENT_LIMIT_GIB also clear JAX's
+    caches of compiled and traced functions, most of what stays (about 2
+    GB after five port modules), at the cost of tracing again what a later
+    module calls."""
+    import ctypes
+    import gc
+    import sys
+
+    def trim():
+        gc.collect()
+        try:
+            ctypes.CDLL("libc.so.6").malloc_trim(0)
+        except (OSError, AttributeError):  # not glibc
+            pass
+
+    trim()
+    if "jax" in sys.modules and _resident_gib() > RESIDENT_LIMIT_GIB:
+        sys.modules["jax"].clear_caches()
+        trim()
+
+
+def _resident_gib() -> float:
+    """This process's resident memory (0 where /proc cannot say)."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+    except (OSError, ValueError, IndexError):
+        return 0.0
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2 ** 30
 
 def fill_like(shapes, seed: int):
     """Numpy values for a tree of ShapeDtypeStructs: kernels normal with
