@@ -311,7 +311,13 @@ Phases, any failure exits non-zero:
      default generator of phase 4 (its CPU copy, moved to the card) with
      seeded batch-norm statistics:
      fold_generator_bns's forward (depth, seg, mask) within 1e-5 of the
-     unfolded forward on the card.
+     unfolded forward on the card; (e) at 640^2 batch 2 with 64 channels:
+     AdaptiveInstanceNorm in f32 on the card within 1e-5 of the CPU, over
+     2 row shards of the card (forward_rows) within 1e-5 of the card's
+     forward, in bf16 within one bf16 ulp of each value of its f32 path
+     on the same input; resize_like to a 480 x 853 reference, nearest and
+     bilinear, a tensor on the card within 1e-5 of the CPU (nearest
+     exactly) and a 2-shard Rows within 1e-5 of the card's tensor.
 Work that does not wait for other work runs beside it, the script's
 limit being 1,200 s: phase 9 runs in this process while phase 8's first
 trainer run trains in its own (the trainer's seconds and phase 9's are
@@ -3903,6 +3909,50 @@ def fold_checks(torch, G32) -> None:
     del G
 
 
+def adain_resize_checks(torch) -> None:
+    """15.e (see the module docstring)."""
+    from climategan_torch.models.norms import AdaptiveInstanceNorm
+    from climategan_torch.ops.interpolate import resize_like
+    from climategan_torch.parallel import spatial
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(16)
+    x = torch.randn(BATCH, 64, SIZE, SIZE, generator=g) * 3 + 1
+    w = torch.rand(64, generator=g) + 0.5
+    b = torch.randn(64, generator=g) * 0.5
+    xd, wd, bd = (t.to("cuda") for t in (x, w, b))
+    norm = AdaptiveInstanceNorm()
+    want = norm(xd, wd, bd)
+    errs = {"f32 card vs cpu": (want.cpu() - norm(x, w, b)).abs().max().item(),
+            "2 shards vs card": (norm.forward_rows(
+                spatial.shard_rows(xd, ["cuda", "cuda"]), wd, bd)
+                .gather("cuda") - want).abs().max().item()}
+    if not max(errs.values()) <= 1e-5:
+        raise AssertionError(f"15.e AdaptiveInstanceNorm: {errs}")
+    x16, w16, b16 = (t.bfloat16() for t in (xd, wd, bd))
+    got, ref = norm(x16, w16, b16), norm(x16.float(), w16.float(), b16.float())
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    ulps = ((got.float() - ref).abs() / ulp).max().item()
+    if got.dtype != torch.bfloat16 or not ulps <= 1.0:
+        raise AssertionError(f"15.e AdaIN bf16: {ulps} ulp, {got.dtype}")
+    del want, got, ref, x16
+    ref_map = torch.zeros(1, 3, 480, 853, device="cuda")
+    for mode in ("nearest", "bilinear"):
+        want = resize_like(xd, ref_map, mode)
+        cpu = (want.cpu() - resize_like(x, ref_map.cpu(), mode)).abs().max()
+        rows = (resize_like(spatial.shard_rows(xd, ["cuda", "cuda"]),
+                            ref_map, mode).gather("cuda") - want).abs().max()
+        errs[f"resize_like {mode} card vs cpu"] = cpu.item()
+        errs[f"resize_like {mode} 2 shards vs card"] = rows.item()
+        if want.shape[-2:] != (480, 853) or not max(cpu, rows) <= (
+                0.0 if mode == "nearest" else 1e-5):
+            raise AssertionError(f"15.e resize_like {mode}: {errs}")
+    log(f"15.e AdaptiveInstanceNorm and resize_like at {SIZE}^2 batch "
+        f"{BATCH}, 64 channels: " + ", ".join(f"{k} {v:.2e}"
+                                               for k, v in errs.items())
+        + f", bf16 {ulps:.3f} ulp; {time.perf_counter() - t0:.1f} s")
+
+
 def tools_phase(torch, dev, root: Path, lists, G32) -> None:
     """Phase 15 (see the module docstring); 15.b ran in phase 8.1."""
     import tempfile
@@ -3912,6 +3962,7 @@ def tools_phase(torch, dev, root: Path, lists, G32) -> None:
         profiler_checks(torch, Path(out))
     compare_checks(torch, root, lists)
     fold_checks(torch, G32)
+    adain_resize_checks(torch)
     torch.cuda.empty_cache()
     log(f"tools phase: {time.perf_counter() - t_phase:.1f} s")
 

@@ -264,6 +264,58 @@ class BucketizeDepth:
         return out
 
 
+class PrepareInference:
+    """A path or an (H, W, 3 or 4) array -> a model-ready (1, t, t, 3)
+    float32 array in [-1, 1] (reference transforms.py:292-360): values
+    above 1.5 are taken as [0, 255], the short side is resized to
+    ``t = target_size`` keeping the aspect ratio (bilinear, as ``np_resize``
+    computes it), then the centre t x t is cropped; float16 with ``half``.
+    A path is decoded as ``datasets._imread`` does (RGB order); a gray
+    image is repeated over three channels and a 16-bit one cut to its high
+    byte, as an 8-bit colour decode does."""
+
+    def __init__(self, target_size: int = 640, half: bool = False):
+        self.target_size = target_size
+        self.half = half
+
+    def __call__(self, x) -> np.ndarray:
+        if isinstance(x, str) or hasattr(x, "__fspath__"):
+            from climategan_torch.data.datasets import _imread  # imports us
+
+            arr = _imread(str(x))
+            if arr.dtype == np.uint16:
+                arr = (arr >> 8).astype(np.uint8)
+            if arr.ndim == 2:
+                arr = np.repeat(arr[..., None], 3, axis=-1)
+        else:
+            arr = np.asarray(x)
+        if arr.ndim == 3 and arr.shape[-1] == 4:
+            arr = arr[..., :3]
+        arr = arr.astype(np.float32)
+        if arr.max() > 1.5:
+            arr = arr / 255.0
+
+        h, w = arr.shape[:2]
+        t = self.target_size
+        if h < w:
+            nh, nw = t, int(round(w * t / h))
+        else:
+            nh, nw = int(round(h * t / w)), t
+        arr = np_resize(arr[None], (nh, nw), "bilinear", False)[0]
+        top, left = (nh - t) // 2, (nw - t) // 2
+        out = (arr[top:top + t, left:left + t] * 2.0 - 1.0)[None]
+        return out.astype(np.float16) if self.half else out
+
+
+class PrepareTest(PrepareInference):
+    """``PrepareInference`` of each of ``xs``, as one (N, t, t, 3) batch
+    (reference transforms.py:363-421)."""
+
+    def __call__(self, xs) -> np.ndarray:
+        return np.concatenate(
+            [PrepareInference.__call__(self, x) for x in xs], axis=0)
+
+
 def get_transforms(opts, mode: str, domain: str, rng=None):
     """The pipeline of ``opts.data.transforms`` (reference
     transforms.py:424-490): the colour jitters come last, in train mode

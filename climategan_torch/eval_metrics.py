@@ -2,17 +2,24 @@
 part of the JAX package's ``eval_metrics.py`` that ``eval_masker`` and the
 trainer's evaluation use.
 
-Re-design of reference climategan/eval_metrics.py: masker confusion
-metrics over {cannot=0, must=1, may=2} labels (:133-260) and
+Re-design of reference climategan/eval_metrics.py: the F1 score, pixel
+accuracy and mIOU (:68-130) of the seg head, masker confusion metrics over
+{cannot=0, must=1, may=2} labels (:133-260), the error maps and rates of
+each label (``pred_cannot``, ``missed_must``, ``may_flood``; :264-357) and
 edges_coherence_std_min (:484-543) without the sklearn/skimage deps
-(Sobel + pairwise distances in numpy); pixel accuracy and mIOU (:79-130) of
-the seg head. The error-map helpers wait for a caller.
+(Sobel + pairwise distances in numpy).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+
+def f1_score(pred: np.ndarray, gt: np.ndarray) -> float:
+    """F1 of a soft or binary prediction against a binary ground truth."""
+    pred, gt = np.asarray(pred), np.asarray(gt)
+    return float(2 * (pred * gt).sum() / max((pred + gt).sum(), 1e-12))
 
 
 def accuracy(pred: np.ndarray, gt: np.ndarray) -> float:
@@ -108,6 +115,30 @@ def masker_classification_metrics(
         "may_pos": may_pos_map, "may_neg": may_neg_map,
     }
     return metrics, maps
+
+
+def pred_cannot(pred, label, label_cannot: int = 0):
+    """False-positive (mask on cannot-flood) map and rate
+    (reference eval_metrics.py:264-299)."""
+    fp_map = np.asarray(pred, float) * (np.asarray(label) == label_cannot)
+    fpr = fp_map.sum() / max((np.asarray(label) == label_cannot).sum(), 1e-12)
+    return fp_map, float(fpr)
+
+
+def missed_must(pred, label, label_must: int = 1):
+    """False-negative (missed must-flood) map and rate
+    (reference eval_metrics.py:302-330)."""
+    fn_map = (1.0 - np.asarray(pred, float)) * (np.asarray(label) == label_must)
+    fnr = fn_map.sum() / max((np.asarray(label) == label_must).sum(), 1e-12)
+    return fn_map, float(fnr)
+
+
+def may_flood(pred, label, label_may: int = 2):
+    """May-flood maps: (mask on may-flood, no mask on may-flood)
+    (reference eval_metrics.py:333-357)."""
+    may = np.asarray(label) == label_may
+    pred = np.asarray(pred, float)
+    return pred * may, (1.0 - pred) * may
 
 
 def _sobel_mag(x: np.ndarray) -> np.ndarray:

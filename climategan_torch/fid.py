@@ -248,6 +248,16 @@ def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
                  - 2.0 * torch.trace(covmean))
 
 
+def compute_fid_from_features(real_feats, fake_feats) -> float:
+    """The Frechet distance between the statistics of two (N, D) feature
+    sets, tensors or arrays; computed on the real set's device."""
+    real = torch.as_tensor(real_feats)
+    fake = torch.as_tensor(fake_feats, device=real.device)
+    mu1, s1 = activation_statistics(real)
+    mu2, s2 = activation_statistics(fake)
+    return frechet_distance(mu1, s1, mu2, s2)
+
+
 class FIDEvaluator:
     """The painter's FID on the validation rf images (reference
     fid.py:334-434): real statistics kept by ``set_real``, then ``fid`` of

@@ -413,6 +413,52 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return diff * torch.rsqrt(var + eps).to(x.dtype)
 
 
+class AdaptiveInstanceNorm(nn.Module):
+    """AdaIN (reference climategan/norms.py:8-46): ``instance_norm`` of
+    NCHW ``x``, then a per-channel ``weight`` and ``bias`` of shape (C,)
+    passed in with each call (the reference assigns them to the module
+    before it). The math runs in f32 (float64 for float64), one rounding to
+    the output's dtype at the end (that of x, weight and bias promoted):
+    the JAX package rounds a bf16 input's deviations and its normalized map
+    to bf16 on the way. It has no parameters or buffers of its own, so the
+    weights bridge (``utils/convert.state_dict_from_jax``) has nothing to
+    map."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    @staticmethod
+    def _affine(y: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+        c = y.shape[1]
+        w = weight.to(y.device, y.dtype).view(1, c, 1, 1)
+        b = bias.to(y.device, y.dtype).view(1, c, 1, 1)
+        return (y * w + b).to(dtype)
+
+    @staticmethod
+    def _dtypes(x_dtype, weight, bias):
+        """(the compute dtype, the output dtype)."""
+        out = torch.promote_types(
+            x_dtype, torch.promote_types(weight.dtype, bias.dtype))
+        return torch.promote_types(x_dtype, torch.float32), out
+
+    def forward(self, x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+        st, out = self._dtypes(x.dtype, weight, bias)
+        return self._affine(instance_norm(x.to(st), self.eps), weight, bias,
+                            out)
+
+    def forward_rows(self, r: Rows, weight: torch.Tensor,
+                     bias: torch.Tensor) -> Rows:
+        """The forward on a row-sharded map: ``spatial.instance_norm``'s
+        statistics over every shard, then the affine on each shard's
+        device, with the gradient of weight and bias summed over them."""
+        st, out = self._dtypes(r.dtype, weight, bias)
+        y = spatial.instance_norm(r.map(lambda p: p.to(st)), self.eps)
+        return y.map(lambda p: self._affine(p, weight, bias, out))
+
+
 def nhwc(x: torch.Tensor) -> torch.Tensor:
     """NCHW -> contiguous NHWC, the layout of the conditioning kernel."""
     return x.permute(0, 2, 3, 1).contiguous()

@@ -45,6 +45,15 @@ def retrieve_sky_mask(seg: torch.Tensor, sky_idx: int = 9) -> torch.Tensor:
     return seg == sky_idx
 
 
+def uint8_to_unit_range(x: torch.Tensor) -> torch.Tensor:
+    """[0, 255] uint8 -> f32 in [-1, 1] as ``x / 127.5 - 1``. The divisor
+    is a tensor on x's device, so the card divides too (a Python scalar
+    would have it multiply by the reciprocal): the result equals
+    ``utils/native.uint8_to_m11``'s on the host bit for bit."""
+    return (x.to(torch.float32) / torch.tensor(127.5, device=x.device)
+            - 1.0)
+
+
 def unit_range_to_uint8(x: torch.Tensor) -> torch.Tensor:
     """Per-sample min-max normalize, then scale to 255 and truncate."""
     return (normalize(x) * 255.0).to(torch.uint8)

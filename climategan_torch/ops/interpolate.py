@@ -31,6 +31,21 @@ def resize(x: torch.Tensor, size, mode: str = "bilinear",
     return y.to(x.dtype)
 
 
+def resize_like(x, ref, mode: str = "bilinear",
+                align_corners: bool = False):
+    """``resize`` of ``x`` to ``ref``'s height and width. Either may be a
+    row-sharded ``parallel.spatial.Rows``: a sharded ``x`` goes through
+    ``spatial.resize`` (the result split as ``x``), a sharded ``ref`` gives
+    its whole map's height and width."""
+    from climategan_torch.parallel import spatial  # it imports this module
+
+    size = ((ref.h, ref.w) if isinstance(ref, spatial.Rows)
+            else tuple(ref.shape[-2:]))
+    if isinstance(x, spatial.Rows):
+        return spatial.resize(x, size, mode, align_corners)
+    return resize(x, size, mode, align_corners)
+
+
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Integer-factor nearest upsample of NCHW ``x``."""
     return x.repeat_interleave(factor, dim=2).repeat_interleave(factor, dim=3)

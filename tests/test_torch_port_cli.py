@@ -21,13 +21,16 @@ import torch
 
 from climategan_torch import apply_events as port_cli
 from climategan_torch import bench as port_bench
+from climategan_torch import eval_metrics as port_metrics
 from climategan_torch import eval_masker as port_eval
 from climategan_torch.models.generator import GenConfig
 from climategan_torch.utils.convert import state_dict_from_jax
 from climategan_torch.utils.opts import load_opts as torch_load_opts
+from climategan_tpu import eval_metrics as jax_metrics
 from climategan_tpu.utils import serving as jax_serving
 from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
     jax_variables,
+    once_per_session,
     one_thread,
     write_run_dir,
     zeros_like_tree,
@@ -82,12 +85,18 @@ def _root_main(module, argv):
 # ---- apply_events -------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def served(setup):
+def served(setup, tmp_path_factory):
+    """{PNG name: (the root CLI's image, the port's)} as cv2 reads them, and
+    the port's names; computed once per test session."""
+    return once_per_session(tmp_path_factory, "torch_port_cli_served",
+                            lambda: _serve(*setup))
+
+
+def _serve(run, root):
     import cv2
 
     import apply_events
 
-    run, root = setup
     flags = ["-i", str(root / "imgs"), "-r", str(run), "--keep_ratio_128",
              "-b", "2", "--no_cloudy"]
     _root_main(apply_events, ["apply_events.py", *flags, "-o", str(root / "jax")])
@@ -147,10 +156,10 @@ def test_cli_refuses_multi_gpu_flags(setup, served, capsys):
                     lambda name, event, img: split.__setitem__(
                         f"{name}_{event}.png", img),
                     infer=port_cli.load_model(args, devices=["cpu", "cpu"]))
-    _, names = served
+    pngs, names = served
     assert sorted(split) == names
     for name, got in split.items():
-        want = cv2.imread(str(root / "port" / name))[..., ::-1]
+        want = pngs[name][1][..., ::-1]
         diff = np.abs(got.astype(int) - want.astype(int))
         assert np.mean(diff <= 1) >= 0.999, (name, diff.max())
     args = port_cli.parse_args(["-i", ".", "--mesh", "--device", "cpu"])
@@ -159,11 +168,10 @@ def test_cli_refuses_multi_gpu_flags(setup, served, capsys):
                           "--keep_ratio_128", "-b", "2", "--no_cloudy",
                           "--mesh", "-o", str(root / "mesh"),
                           "--device", "cpu"]) == 0
-    pngs, names = served
     assert sorted(p.name for p in (root / "mesh").glob("*.png")) == names
     for n in names:
         assert np.array_equal(cv2.imread(str(root / "mesh" / n)),
-                              cv2.imread(str(root / "port" / n))), n
+                              pngs[n][1]), n
 
 
 def test_padding_repeats_the_last_image():
@@ -177,16 +185,21 @@ def test_padding_repeats_the_last_image():
 # ---- eval_masker --------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def evaluated(setup):
-    """Both reports, and the largest difference of the two smooth masks
-    (the JAX one from the root CLI's own jitted ``infer_masker``)."""
+def evaluated(setup, tmp_path_factory):
+    """Both reports, and each image's two smooth masks (the JAX one from
+    the root CLI's own jitted ``infer_masker``) with its label; computed
+    once per test session."""
+    return once_per_session(tmp_path_factory, "torch_port_cli_evaluated",
+                            lambda: _evaluate(*setup))
+
+
+def _evaluate(run, root):
     import cv2
     import jax
 
     import eval_masker
     from climategan_tpu.models.generator import create_generator
 
-    run, root = setup
     flags = ["--images_dir", str(root / "eimgs"), "--labels_dir",
              str(root / "labels"), "-r", str(run), "--size", "64"]
     _root_main(eval_masker, ["eval_masker.py", *flags, "--output",
@@ -239,6 +252,32 @@ def test_eval_metrics_within_the_masks_agreement(evaluated):
         for k, v in w.items():
             if k != "image":
                 assert abs(g[k] - v) <= bound.get(k, d + 1e-12), (k, g[k], v)
+
+
+@pytest.mark.parametrize("pred_kind", ["soft", "binary"])
+def test_error_maps_and_f1_match_jax(pred_kind):
+    """``f1_score``, ``pred_cannot``, ``missed_must`` and ``may_flood`` on
+    random {0, 1, 2} labels at 61 x 47: the maps exactly equal, the rates
+    within 1e-12."""
+    rng = np.random.default_rng(12)
+    label = rng.integers(0, 3, (61, 47))
+    pred = rng.uniform(size=(61, 47))
+    if pred_kind == "binary":
+        pred = (pred > 0.5).astype(np.float32)
+    for fn in ("pred_cannot", "missed_must"):
+        got_map, got_rate = getattr(port_metrics, fn)(pred, label)
+        want_map, want_rate = getattr(jax_metrics, fn)(pred, label)
+        np.testing.assert_array_equal(got_map, want_map, err_msg=fn)
+        assert abs(got_rate - want_rate) <= 1e-12, fn
+        assert 0.0 < got_rate < 1.0, fn
+    for got, want in zip(port_metrics.may_flood(pred, label),
+                         jax_metrics.may_flood(pred, label)):
+        np.testing.assert_array_equal(got, want)
+    gt = (label == 1).astype(np.float32)
+    assert abs(port_metrics.f1_score(pred, gt)
+               - jax_metrics.f1_score(pred, gt)) <= 1e-12
+    assert port_metrics.f1_score(gt, gt) == 1.0
+    assert port_metrics.f1_score(np.zeros(3), np.zeros(3)) == 0.0
 
 
 # ---- bench argument handling --------------------------------------------

@@ -46,6 +46,7 @@ from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
     jax_cfg,
     jax_variables,
     nchw,
+    once_per_session,
     one_thread,
     pair,
 )
@@ -55,8 +56,15 @@ EVENTS = ("flood", "wildfire", "smog")
 
 @functools.lru_cache(maxsize=None)
 def infer_run(name):
-    """{"want": JAX's outputs, "got": the port's} of configuration
-    ``name`` on the same weights, input and draws."""
+    """{"want": JAX's outputs, "got": the port's whole, "spatial": its 2
+    row shards'} of configuration ``name`` on the same weights, input and
+    draws, numpy; computed once per test session (``once_per_session``)
+    and by this process once."""
+    return once_per_session(None, f"torch_port_configs_infer_{name}",
+                            lambda: _infer_run(name))
+
+
+def _infer_run(name):
     G, V, _, x, _, call = pair(name)
     jopts = config_opts(name)
     topts = load_opts(default=jopts.to_dict())

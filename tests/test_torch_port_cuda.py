@@ -1172,3 +1172,63 @@ def test_layer_norm_on_the_card(shards):
     (ya * r).sum().backward()
     (yb * r).sum().backward()
     torch.testing.assert_close(xb.grad, xa.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_adain_resize_like_and_unit_range_on_the_card():
+    """``AdaptiveInstanceNorm`` (forward, its gradients, and ``forward_rows``
+    over 2 shards of the card) and ``resize_like`` in each mode (a tensor
+    and a 2-shard ``Rows``) on the card against the CPU in f32 within 1e-5;
+    AdaIN's bf16 within one bf16 ulp of each value of its f32 path on the
+    same input; ``uint8_to_unit_range`` on the card equal to the host's
+    ``uint8_to_m11`` bit for bit."""
+    from climategan_torch.models.norms import AdaptiveInstanceNorm
+    from climategan_torch.ops.image import uint8_to_unit_range
+    from climategan_torch.ops.interpolate import resize_like
+    from climategan_torch.parallel import spatial
+    from climategan_torch.utils.native import uint8_to_m11
+
+    dev = _device()
+    g = torch.Generator().manual_seed(17)
+    x = torch.randn(2, 16, 37, 29, generator=g) * 3 + 1
+    w = torch.rand(16, generator=g) + 0.5
+    b = torch.randn(16, generator=g) * 0.5
+    cot = torch.randn(x.shape, generator=g)
+    norm = AdaptiveInstanceNorm()
+
+    def run(device, shards=0):
+        args = [t.to(device, copy=True).requires_grad_(True)
+                for t in (x, w, b)]
+        if shards:
+            y = norm.forward_rows(spatial.shard_rows(args[0], [device] * 2),
+                                  *args[1:]).gather(device)
+        else:
+            y = norm(*args)
+        y.backward(cot.to(device))
+        return [t.detach().cpu() for t in (y, *(a.grad for a in args))]
+
+    want = run("cpu")
+    for shards in (0, 2):
+        for got, ref in zip(run(dev, shards), want):
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    x16, w16, b16 = (t.to(dev, torch.bfloat16) for t in (x, w, b))
+    with torch.no_grad():
+        got = norm(x16, w16, b16)
+        ref = norm(x16.float(), w16.float(), b16.float())
+    assert got.dtype == torch.bfloat16
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    assert bool(((got.float() - ref).abs() <= ulp).all())
+
+    ref_map = torch.zeros(1, 3, 61, 47)
+    for mode, ac in (("nearest", False), ("bilinear", False),
+                     ("bilinear", True), ("bicubic", False)):
+        want = resize_like(x, ref_map, mode, ac)
+        got = resize_like(x.to(dev), ref_map.to(dev), mode, ac)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+        rows = resize_like(spatial.shard_rows(x.to(dev), [dev] * 2),
+                           ref_map.to(dev), mode, ac)
+        torch.testing.assert_close(rows.gather("cpu"), want, rtol=1e-5,
+                                   atol=1e-5)
+
+    u8 = torch.randint(0, 256, (2, 3, 37, 29), generator=g, dtype=torch.uint8)
+    got = uint8_to_unit_range(u8.to(dev)).cpu().numpy()
+    np.testing.assert_array_equal(got, uint8_to_m11(u8.numpy()))

@@ -101,6 +101,40 @@ def test_np_resize_matches_jax(mode, size):
                                       JT.np_resize(a, size, mode, ac))
 
 
+@pytest.mark.parametrize("half", [False, True])
+def test_prepare_inference_and_test_match_jax(tmp_path, half):
+    """``PrepareInference`` on arrays at 37 x 53 and 61 x 29 (wide and
+    tall), in [0, 255] and in [0, 1], and on PNGs (colour, gray, 16-bit
+    colour: the port decodes them unchanged and converts them as JAX's
+    8-bit colour decode does); ``PrepareTest`` on the batch of them.
+    target_size 32: within 1e-6, float16 exactly."""
+    import cv2
+
+    rng = np.random.default_rng(14)
+    u8 = rng.integers(0, 256, (37, 53, 3), dtype=np.uint8)
+    pngs = {"photo": rng.integers(0, 256, (61, 29, 3), dtype=np.uint8),
+            "gray": rng.integers(0, 256, (40, 45), dtype=np.uint8),
+            "deep": rng.integers(0, 2 ** 16, (33, 50, 3), dtype=np.uint16)}
+    for name, img in pngs.items():
+        cv2.imwrite(str(tmp_path / f"{name}.png"), img)
+    inputs = [u8, u8.astype(np.float32) / 255.0,
+              rng.uniform(size=(61, 29, 3)).astype(np.float32),
+              rng.integers(0, 256, (61, 29, 4)).astype(np.float32),
+              *(tmp_path / f"{name}.png" for name in pngs)]
+    got_all = TT.PrepareTest(32, half)(inputs)
+    want_all = JT.PrepareTest(32, half)(inputs)
+    assert got_all.shape == (7, 32, 32, 3)
+    for got, want in ((got_all, want_all),
+                      *((TT.PrepareInference(32, half)(x),
+                         JT.PrepareInference(32, half)(x)) for x in inputs)):
+        assert got.dtype == want.dtype == (np.float16 if half else np.float32)
+        if half:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert -1.0 <= got_all.min() and got_all.max() <= 1.0
+
+
 def test_bucketize_depth_matches_jax():
     opts = {"gen": {"d": {"classify": {"enable": True, "linspace": {
         "min": 0.35, "max": 6.95, "buckets": 256}}}}}

@@ -31,6 +31,7 @@ from climategan_torch.utils.convert import (
     load_inception_weights,
 )
 from tests.torch_port_common import (  # noqa: F401 (one_thread: a fixture)
+    once_per_session,
     one_thread,
     zeros_like_tree,
 )
@@ -59,8 +60,9 @@ def _nchw(a):
 
 @pytest.fixture(scope="module")
 def pair(tmp_path_factory):
-    """(port evaluator, JAX evaluator with the same weights, the .pth, real
-    and fake NHWC images)."""
+    """(port evaluator, the JAX side's results on the same weights, the
+    .pth, real and fake NHWC images). The JAX side (``_jax_side``) is
+    computed once per test session."""
     g = torch.Generator().manual_seed(11)
     model = fid.InceptionV3Features().init_weights(g)
     with torch.no_grad():
@@ -75,6 +77,15 @@ def pair(tmp_path_factory):
     torch.save(model.state_dict(), str(path))
     ev = fid.FIDEvaluator(load_inception_weights(
         str(path), fid.InceptionV3Features()), batch_size=4, device="cpu")
+    real, fake = scenes(5, "horizon"), scenes(6, "stripes")
+    jax_side = once_per_session(tmp_path_factory, "torch_port_fid_jax",
+                                lambda: _jax_side(path, real, fake))
+    return ev, jax_side, path, real, fake
+
+
+def _jax_side(path, real, fake):
+    """JAX's evaluator on the .pth's weights: its variables (numpy), the
+    real images' features, and ``set_real`` then ``fid`` of the fakes."""
     # JAX's variables as the loader's template: zeros of the init's shapes
     # (an eager init at 299^2 takes most of a minute on one core), every
     # leaf then read from the .pth
@@ -83,15 +94,18 @@ def pair(tmp_path_factory):
                             jax.ShapeDtypeStruct((1, 299, 299, 3), jnp.float32))
     jev = jax_fid.FIDEvaluator(variables=jax_load_inception_weights(
         str(path), zeros_like_tree(shapes)), batch_size=4)
-    return ev, jev, path, scenes(5, "horizon"), scenes(6, "stripes")
+    features = jev.features(jnp.asarray(real))
+    jev.set_real(jnp.asarray(real))
+    return {"variables": jax.tree_util.tree_map(np.asarray, jev.variables),
+            "features": features, "fid": jev.fid(jnp.asarray(fake))}
 
 
 def test_features_match_jax(pair):
     """(4, 2048) features of the same images, resized to 299^2 on each
     side, within 1e-4 of their largest; not collapsed to one vector."""
-    ev, jev, _, real, _ = pair
+    ev, jax_side, _, real, _ = pair
     got = ev.features(_nchw(real)).numpy()
-    want = jev.features(jnp.asarray(real))
+    want = jax_side["features"]
     assert got.shape == want.shape == (4, fid.FEATURES)
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * scale)
@@ -101,9 +115,8 @@ def test_features_match_jax(pair):
 def test_inception_state_dict_round_trips_through_jax(pair):
     """JAX's ``load_inception_weights`` reads the port's state dict, and
     ``inception_state_dict_from_jax`` gives it back, key for key."""
-    ev, jev, _, _, _ = pair
-    back = inception_state_dict_from_jax(
-        jax.tree_util.tree_map(np.asarray, jev.variables))
+    ev, jax_side, _, _, _ = pair
+    back = inception_state_dict_from_jax(jax_side["variables"])
     own = ev.model.state_dict()
     assert set(back) == set(own)
     for k, v in own.items():
@@ -154,14 +167,26 @@ def test_sqrtm_and_frechet_match_jax(n, d):
     assert fid.frechet_distance(tm1, ts1, tm1, ts1) < 1e-4
 
 
+def test_fid_from_features_matches_jax():
+    """``compute_fid_from_features`` on two seeded (64, 32) float64 feature
+    sets, as arrays and as tensors, against JAX's to a relative 1e-6."""
+    rs = np.random.RandomState(13)
+    real = rs.randn(64, 32)
+    fake = rs.randn(64, 32) * 1.2 + 0.3
+    want = jax_fid.compute_fid_from_features(real, fake)
+    assert want > 1.0
+    for a, b in ((real, fake), (torch.from_numpy(real), torch.from_numpy(fake))):
+        np.testing.assert_allclose(fid.compute_fid_from_features(a, b), want,
+                                   rtol=1e-6)
+
+
 def test_fid_end_to_end_matches_jax(pair):
     """``FIDEvaluator.set_real`` then ``fid`` on the same weights and
     images as JAX's: the same, and far from 0 (distinct scenes)."""
-    ev, jev, _, real, fake = pair
+    ev, jax_side, _, real, fake = pair
     ev.set_real(_nchw(real))
     got = ev.fid(_nchw(fake))
-    jev.set_real(jnp.asarray(real))
-    want = jev.fid(jnp.asarray(fake))
+    want = jax_side["fid"]
     assert np.isfinite(got) and want > 1.0
     np.testing.assert_allclose(got, want, rtol=1e-3)
     with pytest.raises(RuntimeError, match="set_real"):

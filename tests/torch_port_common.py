@@ -12,6 +12,7 @@ kernels' edge values from here on a machine without JAX.
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import os
 import pickle
@@ -50,6 +51,10 @@ def compiled(fn, *args):
     return jitted.lower(*args).compile(compiler_options=OPT0)
 
 
+# what ``one_thread`` keeps of the session: its ``tmp_path_factory``
+_SESSION = {}
+
+
 def once_per_session(tmp_path_factory, name: str, make):
     """``make()`` computed once per test session: under pytest-xdist the
     first worker that takes the lock computes it and pickles it into the
@@ -57,18 +62,28 @@ def once_per_session(tmp_path_factory, name: str, make):
     plugin's own recipe); without xdist, ``make()``. For the JAX results
     of a module fixture, as numpy trees, which ``--dist load`` would
     otherwise compute again in every worker that takes a test of its
-    file."""
-    if not os.environ.get("PYTEST_XDIST_WORKER"):
+    file. ``tmp_path_factory`` None: the session's, as ``one_thread``
+    keeps it (for a helper that is not a fixture; ``make()`` outside a
+    port test module)."""
+    factory = tmp_path_factory or _SESSION.get("tmp_path_factory")
+    if factory is None or not os.environ.get("PYTEST_XDIST_WORKER"):
         return make()
     from filelock import FileLock
 
-    path = tmp_path_factory.getbasetemp().parent / f"{name}.pkl"
+    path = factory.getbasetemp().parent / f"{name}.pkl"
     with FileLock(str(path) + ".lock"):
         if path.is_file():
             return pickle.loads(path.read_bytes())
         value = make()
         path.write_bytes(pickle.dumps(value))
     return value
+
+
+def digest(*parts) -> str:
+    """A short hash of JSON-able ``parts`` (opts dicts, sizes, seeds), to
+    name a value ``once_per_session`` keeps."""
+    text = json.dumps(parts, sort_keys=True, default=repr)
+    return hashlib.sha1(text.encode()).hexdigest()[:16]
 
 
 class FirstMoments(NamedTuple):
@@ -86,19 +101,57 @@ def moments_only(state):
                           d_opt=FirstMoments(state.d_opt.mu))
 
 
-def jax_variables(opts, image_size: int, seed: int = 0):
-    """Variables of the JAX generator, filled from numpy draws: kernels
-    normal with std 1/sqrt(fan_in), small biases, batch-norm statistics near
-    identity (variances positive), unit spectral u/v."""
+# ``_init_shapes``' trees in this process
+_SHAPES = {}
+
+
+def _init_shapes(kind: str, opts, image_size: int):
+    """The ShapeDtypeStruct tree of the JAX generator's (``kind`` "G") or
+    discriminators' ("D") variables for ``opts``: a ``jax.eval_shape`` of
+    the model's init (3-8 s on one CPU core), once per process and once
+    per session (``once_per_session``), keyed by the opts' values. The
+    trace-time switches of ``models/norms.py`` change no variable, so they
+    are not part of the key."""
     import jax
     import jax.numpy as jnp
 
+    key = (kind, json.dumps(opts.to_dict(), sort_keys=True, default=repr),
+           image_size)
+    if key in _SHAPES:
+        return _SHAPES[key]
+
+    def make():
+        if kind == "G":
+            from climategan_tpu.models.generator import create_generator
+
+            return jax.eval_shape(
+                create_generator(opts).init, jax.random.PRNGKey(0),
+                jax.ShapeDtypeStruct((1, image_size, image_size, 3),
+                                     jnp.float32))
+        from climategan_tpu.models.discriminator import create_discriminator
+
+        D = create_discriminator(opts)
+        s = D.cfg.s_num_classes
+        return jax.eval_shape(
+            D.init, jax.random.PRNGKey(0),
+            jax.ShapeDtypeStruct((1, image_size, image_size, 4), jnp.float32),
+            jax.ShapeDtypeStruct((1, image_size, image_size, 2), jnp.float32),
+            jax.ShapeDtypeStruct((1, 32, 32, s), jnp.float32))
+
+    _SHAPES[key] = once_per_session(
+        None, f"torch_port_shapes_{kind}_{digest(*key)}", make)
+    return _SHAPES[key]
+
+
+def jax_variables(opts, image_size: int, seed: int = 0):
+    """Variables of the JAX generator, filled from numpy draws: kernels
+    normal with std 1/sqrt(fan_in), small biases, batch-norm statistics near
+    identity (variances positive), unit spectral u/v. The tree's shapes
+    come from ``_init_shapes``."""
     from climategan_tpu.models.generator import create_generator
 
-    G = create_generator(opts)
-    x = jax.ShapeDtypeStruct((1, image_size, image_size, 3), jnp.float32)
-    shapes = jax.eval_shape(G.init, jax.random.PRNGKey(0), x)
-    return G, fill_like(shapes, seed)
+    shapes = _init_shapes("G", opts, image_size)
+    return create_generator(opts), fill_like(shapes, seed)
 
 
 def tiny_pair(image_size: int = 64, seed: int = 0):
@@ -223,13 +276,15 @@ def grade_edge_planes():
 # ---- the training step (tests/test_torch_port_train.py, _losses.py) ----
 
 @pytest.fixture(autouse=True, scope="module")
-def one_thread():
+def one_thread(tmp_path_factory):
     """For the modules that import it: their CPU tests run small tensors,
     and under the suite's parallel workers torch's default of a thread per
     core oversubscribes the host many times over (a 2 s step took 79 s in
     the full suite), so each of their tests runs on one thread. After the
     module, the memory its fixtures held goes back to the system
-    (``release_memory``)."""
+    (``release_memory``). It keeps the session's ``tmp_path_factory`` for
+    ``once_per_session(None, ...)``."""
+    _SESSION["tmp_path_factory"] = tmp_path_factory
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -307,19 +362,10 @@ def fill_like(shapes, seed: int):
 
 def jax_d_variables(jopts, image_size: int, seed: int = 1):
     """(JAX discriminators, their variables from numpy draws)."""
-    import jax
-    import jax.numpy as jnp
-
     from climategan_tpu.models.discriminator import create_discriminator
 
-    D = create_discriminator(jopts)
-    s = D.cfg.s_num_classes
-    shapes = jax.eval_shape(
-        D.init, jax.random.PRNGKey(0),
-        jax.ShapeDtypeStruct((1, image_size, image_size, 4), jnp.float32),
-        jax.ShapeDtypeStruct((1, image_size, image_size, 2), jnp.float32),
-        jax.ShapeDtypeStruct((1, 32, 32, s), jnp.float32))
-    return D, fill_like(shapes, seed)
+    shapes = _init_shapes("D", jopts, image_size)
+    return create_discriminator(jopts), fill_like(shapes, seed)
 
 
 def gan_draws(key, soft_shift: float, flip_prob: float):
@@ -462,8 +508,11 @@ def config_opts(name, size=SIZE):
 
 @functools.lru_cache(maxsize=None)
 def pair(name):
-    """(JAX G, JAX variables, port G in eval mode, x, JAX encode(x), jitted
-    JAX method caller) of configuration ``name``."""
+    """(JAX G, JAX variables, port G in eval mode, x, JAX encode(x), JAX
+    method caller) of configuration ``name``. The caller's results are
+    numpy trees, each computed once per test session (``once_per_session``
+    keyed by the method and a hash of its arguments): the configurations'
+    tests call the same methods from several xdist workers."""
     import jax
 
     jopts = config_opts(name)
@@ -475,9 +524,18 @@ def pair(name):
         .astype(np.float32)
 
     @functools.partial(jax.jit, static_argnames=("method",))
-    def call(*args, method):
+    def jitted(*args, method):
         return G.apply(V, *args, method=method)
 
+    def call(*args, method):
+        leaves, tree = jax.tree_util.tree_flatten(args)
+        key = digest(name, method, str(tree), *(
+            (np.asarray(a).dtype.str, np.asarray(a).shape,
+             hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest())
+            for a in leaves))
+        return once_per_session(
+            None, f"torch_port_pair_{key}",
+            lambda: jax.tree_util.tree_map(
+                np.asarray, jitted(*args, method=method)))
+
     return G, V, tG.eval(), x, call(x, method="encode"), call
-
-
